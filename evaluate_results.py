@@ -48,11 +48,11 @@ def find_golden_files() -> list[str]:
                 break
     return found
 
-from opencv_traffic_sign_detector_tpu.eval.ap import (
+from traffic_sign_detector.eval.ap import (
     pr_from_tp_fp,
     precision_recall_curve,
 )
-from opencv_traffic_sign_detector_tpu.data.gt import (
+from traffic_sign_detector.data.gt import (
     load_ground_truth,
     load_results_file,
 )
@@ -129,12 +129,12 @@ def main(argv=None) -> int:
 
 def draw_overlays(test_path: str, dets_path: str, gt, out_dir: str) -> None:
     """GT (green) + detection (red) rectangles per frame, saved to out_dir."""
-    from opencv_traffic_sign_detector_tpu.data.gt import boxes_by_file
-    from opencv_traffic_sign_detector_tpu.data.images import (
+    from traffic_sign_detector.data.gt import boxes_by_file
+    from traffic_sign_detector.data.images import (
         list_frame_files,
         load_image_bgr,
     )
-    from opencv_traffic_sign_detector_tpu.utils.annotate import (
+    from traffic_sign_detector.utils.annotate import (
         draw_boxes_bgr,
         save_image_bgr,
     )

@@ -7,7 +7,7 @@ Grammar-compatible with the reference's `Deteción de Objetos/main.py`:
         --train_path train_jpg --test_path test_alumnos_jpg
 
 Trains the mean-mask templates from train_path, detects on every frame of
-test_path with the TPU pipeline, writes resultado.txt + annotated frames to
+test_path on the device pipeline, writes resultado.txt + annotated frames to
 resultado_imgs/, and prints per-type / total precision, recall and F1
 statistics against test_path/gt.txt.
 """
@@ -15,34 +15,36 @@ statistics against test_path/gt.txt.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import shutil
 import sys
 import time
 
-from opencv_traffic_sign_detector_tpu.config import (
+from traffic_sign_detector.config import (
     ConfigError,
     MSERConfig,
     PipelineConfig,
 )
-from opencv_traffic_sign_detector_tpu.data.gt import boxes_by_file
-from opencv_traffic_sign_detector_tpu.data.images import (
+from traffic_sign_detector.data.gt import boxes_by_file
+from traffic_sign_detector.data.images import (
     list_frame_files,
     load_image_bgr,
 )
-from opencv_traffic_sign_detector_tpu.eval.ap import score_detection_files
-from opencv_traffic_sign_detector_tpu.eval.stats import (
+from traffic_sign_detector.eval.ap import score_detection_files
+from traffic_sign_detector.eval.stats import (
     compute_detection_statistics,
     format_stats_report,
 )
-from opencv_traffic_sign_detector_tpu.models.detector import DetectionPipeline
-from opencv_traffic_sign_detector_tpu.models.mean_masks import train_mean_masks
-from opencv_traffic_sign_detector_tpu.utils.annotate import (
+from traffic_sign_detector.models.detector import DetectionPipeline
+from traffic_sign_detector.models.mean_masks import train_mean_masks
+from traffic_sign_detector.utils.annotate import (
     draw_boxes_bgr,
     save_image_bgr,
 )
-from opencv_traffic_sign_detector_tpu.utils.serialization import write_results_file
-from opencv_traffic_sign_detector_tpu.utils.stages import StageError, stage
+from traffic_sign_detector.utils.serialization import write_results_file
+from traffic_sign_detector.utils.stages import StageError, stage
+from traffic_sign_detector.utils.compile_cache import enable_compile_cache
 
 USAGE_HINT = """\
 Detector spec: MSER_<delta>_<minArea>_<maxArea>_<maxVariation>
@@ -58,14 +60,13 @@ weights from --cnn_params (train with scripts/train_cnn.py)."""
 def _run_cnn(args) -> int:
     """CNN-family orchestration: same 4 stages, trained weights instead of
     mean-mask templates.  Spec grammar: ``CNN`` or ``CNN_<scoreThreshold>``."""
-    import dataclasses as _dc
     import os as _os
 
-    from opencv_traffic_sign_detector_tpu.models.cnn_detector import (
+    from traffic_sign_detector.models.cnn_detector import (
         CNNDetectorConfig,
         saved_meta,
     )
-    from opencv_traffic_sign_detector_tpu.models.cnn_quant import (
+    from traffic_sign_detector.models.cnn_quant import (
         load_detector,
     )
 
@@ -85,7 +86,7 @@ def _run_cnn(args) -> int:
         except ValueError:
             print(f"Invalid CNN score threshold: {parts[1]!r}\n{USAGE_HINT}")
             return 2
-        cfg = _dc.replace(cfg, score_threshold=thr)
+        cfg = dataclasses.replace(cfg, score_threshold=thr)
 
     test_path = args.test_path.replace("\\", "/")
     try:
@@ -143,7 +144,26 @@ def _run_cnn(args) -> int:
     return 0
 
 
+def operating_point(mser: MSERConfig, downscale: int = 2,
+                    max_regions: int = 128,
+                    pixel_area_stability: bool = False) -> MSERConfig:
+    """The CLI's MSER operating point for a parsed detector spec."""
+    if downscale > 1 and not pixel_area_stability:
+        # bbox-area sweep's tuned operating point (PARITY.md round-3 knee)
+        mser = dataclasses.replace(mser, downscale=downscale, ccl_iters=2,
+                                   level_step=9, ccl_jumps=0)
+    if max_regions:
+        mser = dataclasses.replace(mser, max_regions=max_regions)
+    if pixel_area_stability:
+        # the pixel-area sweep keeps ITS tuned params (iters 8, auto level
+        # step — iters 2 / step 9 collapse this path to F1 0.03, measured)
+        mser = dataclasses.replace(mser, downscale=downscale,
+                                   fused_sweep=False)
+    return mser
+
+
 def main(argv=None) -> int:
+    enable_compile_cache()
     parser = argparse.ArgumentParser(
         description="Trains and executes a detector over a set of testing images"
     )
@@ -166,10 +186,10 @@ def main(argv=None) -> int:
                         "are virtually upscaled before the forward and "
                         "boxes mapped back to native coordinates; for "
                         "fusable ratios the resize folds into the stem "
-                        "(ops/fused_upscale.py) and costs almost nothing. "
-                        "1.6 is the measured quality flagship on native "
-                        "GTSDB frames: F1 0.81 -> 0.85, AP 0.857 -> 0.954 "
-                        "at >5,900 fps (PARITY.md round 5).  bgr/yuv420 "
+                        "(ops/fused_upscale.py) and no upscaled frame is "
+                        "materialized.  1.6 is the measured quality "
+                        "flagship on native GTSDB frames: F1 0.81 -> 0.85, "
+                        "AP 0.857 -> 0.954 (PARITY.md).  bgr/yuv420 "
                         "ingest only")
     parser.add_argument("--out", default="resultado.txt")
     parser.add_argument("--out_imgs", default="resultado_imgs")
@@ -195,12 +215,11 @@ def main(argv=None) -> int:
                         help="weights for --detector CNN")
     parser.add_argument("--pixel_area_stability", action="store_true",
                         help="use OpenCV's exact pixel-count stability "
-                             "semantics (XLA level sweep with per-level "
-                             "component-area scatter) instead of the fused "
-                             "Pallas sweep's bbox-area substitute — slower, "
-                             "for semantics-parity studies (VERDICT r3 "
-                             "missing #3; both paths share the refine "
-                             "flood's exact pixel-area window)")
+                             "semantics (level sweep with a per-level "
+                             "component-area scatter) instead of the default "
+                             "sweep's bbox-area substitute — for "
+                             "semantics-parity studies (both paths share the "
+                             "refine flood's exact pixel-area window)")
     args = parser.parse_args(argv)
 
     if args.upscale <= 0:
@@ -221,25 +240,13 @@ def main(argv=None) -> int:
         print(f"Invalid detector spec: {e}\n{USAGE_HINT}")
         return 2
 
-    import dataclasses as _dc
-
-    from opencv_traffic_sign_detector_tpu.utils.profiling import (
+    from traffic_sign_detector.utils.profiling import (
         StageProfiler,
         xla_trace,
     )
 
-    if args.downscale > 1 and not args.pixel_area_stability:
-        # fused-kernel tuned operating point (PARITY.md round-3 knee)
-        mser = _dc.replace(mser, downscale=args.downscale, ccl_iters=2,
-                           level_step=9, ccl_jumps=0)
-    if args.max_regions:
-        mser = _dc.replace(mser, max_regions=args.max_regions)
-    if args.pixel_area_stability:
-        # XLA sweep keeps ITS tuned params (iters 8, auto level step —
-        # the warm-start economics of the fused kernel do not transfer;
-        # iters 2 / step 9 collapse this path to F1 0.03, measured)
-        mser = _dc.replace(mser, downscale=args.downscale,
-                           fused_sweep=False)
+    mser = operating_point(mser, args.downscale, args.max_regions,
+                           args.pixel_area_stability)
     cfg = PipelineConfig(mser=mser, batch_size=args.batch_size)
     train_path = args.train_path.replace("\\", "/")
     test_path = args.test_path.replace("\\", "/")
@@ -261,7 +268,7 @@ def main(argv=None) -> int:
         with stage("detect over test directory"):
             mesh = None
             if args.n_devices:
-                from opencv_traffic_sign_detector_tpu.parallel.mesh import (
+                from traffic_sign_detector.parallel.mesh import (
                     data_mesh,
                 )
 

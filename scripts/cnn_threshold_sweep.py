@@ -53,16 +53,16 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from opencv_traffic_sign_detector_tpu.data.images import (
+    from traffic_sign_detector.data.images import (
         list_frame_files, load_image_bgr)
-    from opencv_traffic_sign_detector_tpu.eval.ap import score_detection_files
-    from opencv_traffic_sign_detector_tpu.eval.stats import (
+    from traffic_sign_detector.eval.ap import score_detection_files
+    from traffic_sign_detector.eval.stats import (
         compute_detection_statistics)
-    from opencv_traffic_sign_detector_tpu.models import cnn_detector as cd
-    from opencv_traffic_sign_detector_tpu.utils.serialization import (
+    from traffic_sign_detector.models import cnn_detector as cd
+    from traffic_sign_detector.utils.serialization import (
         write_results_file)
 
-    from opencv_traffic_sign_detector_tpu.models.cnn_quant import (
+    from traffic_sign_detector.models.cnn_quant import (
         load_detector, saved_quant)
 
     arch = args.arch or cd.saved_arch(args.params) or "base"

@@ -58,7 +58,7 @@ def native_descriptors(crops) -> "np.ndarray":
     import tempfile
 
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    src = os.path.join(here, "opencv_traffic_sign_detector_tpu", "runtime",
+    src = os.path.join(here, "traffic_sign_detector", "runtime",
                        "hog_golden.cpp")
     exe = os.path.join(tempfile.mkdtemp(), "hog_golden")
     subprocess.run(

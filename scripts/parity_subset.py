@@ -5,7 +5,7 @@ Runs our Práctica-1 pipeline over the first N test frames, then scores both
 our detections and the reference's (fixture resultado) against gt.txt
 restricted to those frames.  Reports per-pipeline precision/recall/F1 and AP.
 
-    python scripts/parity_subset.py --frames 24 [--cpu]
+    python scripts/parity_subset.py --frames 24 []
 """
 
 import argparse
@@ -19,7 +19,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--frames", type=int, default=24)
-    parser.add_argument("--cpu", action="store_true")
     parser.add_argument("--batch", type=int, default=4)
     parser.add_argument("--max_regions", type=int, default=768)
     parser.add_argument("--downscale", type=int, default=1)
@@ -27,36 +26,30 @@ def main():
     parser.add_argument("--out", default="/tmp/parity_resultado.txt")
     args = parser.parse_args()
 
-    if args.cpu:
-        os.environ["JAX_PLATFORMS"] = "cpu"
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
-
     import numpy as np
 
-    from opencv_traffic_sign_detector_tpu.config import MSERConfig, PipelineConfig
-    from opencv_traffic_sign_detector_tpu.data.gt import (
+    from traffic_sign_detector.config import MSERConfig, PipelineConfig
+    from traffic_sign_detector.data.gt import (
         load_ground_truth,
         load_results_file,
     )
-    from opencv_traffic_sign_detector_tpu.data.images import (
+    from traffic_sign_detector.data.images import (
         list_frame_files,
         load_image_bgr,
     )
-    from opencv_traffic_sign_detector_tpu.eval.ap import (
+    from traffic_sign_detector.eval.ap import (
         pr_from_tp_fp,
         precision_recall_curve,
     )
-    from opencv_traffic_sign_detector_tpu.eval.stats import (
+    from traffic_sign_detector.eval.stats import (
         compute_detection_statistics,
     )
-    from opencv_traffic_sign_detector_tpu.models.detector import DetectionPipeline
-    from opencv_traffic_sign_detector_tpu.models.mean_masks import (
+    from traffic_sign_detector.models.detector import DetectionPipeline
+    from traffic_sign_detector.models.mean_masks import (
         MeanMaskTemplates,
         train_mean_masks,
     )
-    from opencv_traffic_sign_detector_tpu.utils.serialization import (
+    from traffic_sign_detector.utils.serialization import (
         write_results_file,
     )
 

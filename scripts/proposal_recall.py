@@ -4,8 +4,7 @@
 Measures the recall *ceiling* of the recognition pipeline for a given MSER
 config — a GT box is "covered" if any grown proposal reaches IoU >= 0.5
 with it (the scorer's match threshold).  The classifier can never recall a
-sign whose box was never proposed, so this bounds test-set recall
-(VERDICT r2 weak-item 7: recognition R=0.18).
+sign whose box was never proposed, so this bounds test-set recall.
 
     python scripts/proposal_recall.py --downscale 2 --max_regions 512
 """
@@ -37,7 +36,6 @@ def main(argv=None) -> int:
                     help="comma list: union of per-grow proposal sets")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--limit", type=int, default=0)
-    ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--fused_sweep", type=int, default=1,
                     help="0 = the XLA level sweep, which (unlike the "
                     "fused Pallas kernel's per-pixel level collapse) can "
@@ -46,31 +44,24 @@ def main(argv=None) -> int:
                     "--level_step 3 --max_regions 1024 (PARITY.md r5)")
     ap.add_argument("--vs_cv2", action="store_true",
                     help="measure recall against cv2.MSER's own "
-                    "aspect-filtered grown box set instead of GT "
-                    "(VERDICT r4 #5's metric)")
+                    "aspect-filtered grown box set instead of GT")
     args = ap.parse_args(argv)
-
-    if args.cpu:
-        os.environ["JAX_PLATFORMS"] = "cpu"
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
 
     import jax
     import jax.numpy as jnp
     import numpy as np
 
-    from opencv_traffic_sign_detector_tpu.config import MSERConfig
-    from opencv_traffic_sign_detector_tpu.data.gt import load_ground_truth
-    from opencv_traffic_sign_detector_tpu.data.images import (
+    from traffic_sign_detector.config import MSERConfig
+    from traffic_sign_detector.data.gt import load_ground_truth
+    from traffic_sign_detector.data.images import (
         list_frame_files,
         load_image_bgr,
     )
-    from opencv_traffic_sign_detector_tpu.ops.geometry import (
+    from traffic_sign_detector.ops.geometry import (
         filter_and_grow_boxes,
     )
-    from opencv_traffic_sign_detector_tpu.ops.mser import mser_regions_batch
-    from opencv_traffic_sign_detector_tpu.ops.preprocess import enhance_contrast
+    from traffic_sign_detector.ops.mser import mser_regions_batch
+    from traffic_sign_detector.ops.preprocess import enhance_contrast
 
     cfg = MSERConfig(
         delta=args.delta, min_area=args.min_area, max_area=args.max_area,
@@ -93,7 +84,7 @@ def main(argv=None) -> int:
         # reference-exact enhanced gray
         import cv2 as _cv2
 
-        from opencv_traffic_sign_detector_tpu.data.gt import GroundTruthBox
+        from traffic_sign_detector.data.gt import GroundTruthBox
 
         _mser = _cv2.MSER_create(delta=args.delta, min_area=args.min_area,
                                  max_area=args.max_area,

@@ -40,20 +40,20 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="")
     args = ap.parse_args(argv)
 
-    from opencv_traffic_sign_detector_tpu.config import MSERConfig, PipelineConfig
-    from opencv_traffic_sign_detector_tpu.eval.ap import score_detection_files
-    from opencv_traffic_sign_detector_tpu.eval.stats import (
+    from traffic_sign_detector.config import MSERConfig, PipelineConfig
+    from traffic_sign_detector.eval.ap import score_detection_files
+    from traffic_sign_detector.eval.stats import (
         compute_detection_statistics,
     )
-    from opencv_traffic_sign_detector_tpu.models.detector import DetectionPipeline
-    from opencv_traffic_sign_detector_tpu.models.mean_masks import (
+    from traffic_sign_detector.models.detector import DetectionPipeline
+    from traffic_sign_detector.models.mean_masks import (
         MeanMaskTemplates,
         train_mean_masks,
     )
-    from opencv_traffic_sign_detector_tpu.utils.serialization import (
+    from traffic_sign_detector.utils.serialization import (
         write_results_file,
     )
-    from opencv_traffic_sign_detector_tpu.data.images import list_frame_files
+    from traffic_sign_detector.data.images import list_frame_files
 
     mser = MSERConfig(
         max_variation=1.0, downscale=args.downscale, ccl_iters=args.ccl_iters,
@@ -80,7 +80,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     if args.limit:
         files = list_frame_files(test_dir)[: args.limit]
-        from opencv_traffic_sign_detector_tpu.data.prefetch import batched_frames
+        from traffic_sign_detector.data.prefetch import batched_frames
 
         dets = []
         for frames, names in batched_frames(test_dir, files, args.batch):

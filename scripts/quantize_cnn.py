@@ -25,13 +25,13 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from opencv_traffic_sign_detector_tpu.models.cnn_detector import (  # noqa: E402
+from traffic_sign_detector.models.cnn_detector import (  # noqa: E402
     CNNDetectorConfig,
     init_params,
     load_params,
     saved_meta,
 )
-from opencv_traffic_sign_detector_tpu.models.cnn_quant import (  # noqa: E402
+from traffic_sign_detector.models.cnn_quant import (  # noqa: E402
     quantize_v3,
     save_quant_params,
 )
@@ -61,10 +61,10 @@ def main() -> None:
     if cfg.arch != "v3":
         raise SystemExit(f"int8 path implements arch v3, checkpoint is "
                          f"{cfg.arch!r}")
-    params = load_params(args.params, init_params(cfg, 0))
+    params = load_params(args.params, init_params(0))
     sha = hashlib.sha256(open(args.params, "rb").read()).hexdigest()[:12]
 
-    from opencv_traffic_sign_detector_tpu.data.images import (
+    from traffic_sign_detector.data.images import (
         list_frame_files,
         load_frames_batch,
     )

@@ -27,25 +27,18 @@ def main():
                         help="accept p_sign >= 0.5 - margin (P/R dial)")
     parser.add_argument("--max_regions", type=int, default=384)
     parser.add_argument("--out", default="/tmp/rec_resultado.txt")
-    parser.add_argument("--cpu", action="store_true")
     args = parser.parse_args()
 
-    if args.cpu:
-        os.environ["JAX_PLATFORMS"] = "cpu"
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
-
-    from opencv_traffic_sign_detector_tpu.config import MSERConfig, PipelineConfig
-    from opencv_traffic_sign_detector_tpu.eval.ap import score_detection_files
-    from opencv_traffic_sign_detector_tpu.eval.stats import (
+    from traffic_sign_detector.config import MSERConfig, PipelineConfig
+    from traffic_sign_detector.eval.ap import score_detection_files
+    from traffic_sign_detector.eval.stats import (
         compute_detection_statistics,
     )
-    from opencv_traffic_sign_detector_tpu.models.rec_pipeline import (
+    from traffic_sign_detector.models.rec_pipeline import (
         RecognitionPipeline,
     )
-    from opencv_traffic_sign_detector_tpu.models.recognizer import SignClassifier
-    from opencv_traffic_sign_detector_tpu.utils.serialization import (
+    from traffic_sign_detector.models.recognizer import SignClassifier
+    from traffic_sign_detector.utils.serialization import (
         write_results_file,
     )
 

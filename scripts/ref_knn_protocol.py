@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the REFERENCE's own recognition recipe over the full test protocol.
 
-VERDICT r4 next-step #7: the repo's KNN quality (F1 0.46 / AP 0.275 on the
+The repo's KNN quality (F1 0.46 / AP 0.275 on the
 MSER-proposal test path) had no reference-side counterpart, because the
 reference ships no test-set path at all — `REC/main.py:64` calls a
 commented-out ``source.test(...)`` that DOES NOT EXIST in its source.py
@@ -128,7 +128,7 @@ def main():
                 n_kept += 1
         print(f"{n_kept} detections -> {out_path}")
         # score with our verified scorer in a clean CPU process (this
-        # process must stay jax-free so it cannot touch the TPU)
+        # process must stay jax-free so it cannot touch the device)
         r = subprocess.run(
             [sys.executable, os.path.join(REPO, "evaluate_results.py"),
              "--test_path", os.path.join(REF, "test_alumnos_jpg"),

@@ -2,9 +2,11 @@
 """Train the CNN sign detector on GTSDB and score it on the test set.
 
     python scripts/train_cnn.py --steps 4000 \
-        [--out artifacts/cnn_detector/params.npz] [--cpu] [--skip_eval]
+        [--out artifacts/cnn_detector/params.npz] [--skip_eval]
 
-The whole train set is uploaded to HBM once; the loop is device-resident
+Runs on JAX's default backend (``JAX_PLATFORMS=cpu`` for the CPU).  The
+whole train set is uploaded to device memory once; the loop is
+device-resident
 (see models/cnn_train.py).  After training, runs full-frame inference over
 test_alumnos_jpg, writes a resultado.txt, and scores it with the parity
 stats engine + PASCAL AP.
@@ -36,34 +38,25 @@ def main():
                         "(--upscale 1.41-1.6, ops/fused_upscale.py) stay "
                         "inside the training scale distribution")
     parser.add_argument("--threshold", type=float, default=0.35)
-    # default = the shipped flagship arch so a quickstart retrain
-    # reproduces it (ADVICE r3 #1); the arch + threshold tags are also
-    # stored in the npz so loaders auto-detect them either way.
-    parser.add_argument("--arch", default="v3",
-                        choices=["base", "slim", "v2wide", "v2s16",
-                                 "v2s16wide", "v3"])
     parser.add_argument("--out", default="artifacts/cnn_detector/params.npz")
-    parser.add_argument("--resultado", default="/tmp/cnn_resultado.txt")
+    parser.add_argument("--resultado", default="cnn_resultado.txt")
     parser.add_argument("--eval_batch", type=int, default=8)
-    parser.add_argument("--cpu", action="store_true")
     parser.add_argument("--skip_eval", action="store_true")
     parser.add_argument("--eval_only", action="store_true",
                         help="load --out and score it, no training")
     args = parser.parse_args()
 
-    if args.cpu:
-        os.environ["JAX_PLATFORMS"] = "cpu"
-        import jax
+    from traffic_sign_detector.utils.compile_cache import (
+        enable_compile_cache,
+    )
 
-        jax.config.update("jax_platforms", "cpu")
-
+    enable_compile_cache()
     import numpy as np
 
-    from opencv_traffic_sign_detector_tpu.models import cnn_detector as cd
-    from opencv_traffic_sign_detector_tpu.models import cnn_train as ct
+    from traffic_sign_detector.models import cnn_detector as cd
+    from traffic_sign_detector.models import cnn_train as ct
 
-    model_cfg = cd.CNNDetectorConfig(score_threshold=args.threshold,
-                                     arch=args.arch)
+    model_cfg = cd.CNNDetectorConfig(score_threshold=args.threshold)
 
     if not args.eval_only:
         t0 = time.time()
@@ -88,12 +81,12 @@ def main():
     if args.skip_eval:
         return
 
-    from opencv_traffic_sign_detector_tpu.data.images import (
+    from traffic_sign_detector.data.images import (
         list_frame_files, load_image_bgr)
-    from opencv_traffic_sign_detector_tpu.eval.ap import score_detection_files
-    from opencv_traffic_sign_detector_tpu.eval.stats import (
+    from traffic_sign_detector.eval.ap import score_detection_files
+    from traffic_sign_detector.eval.stats import (
         compute_detection_statistics)
-    from opencv_traffic_sign_detector_tpu.utils.serialization import (
+    from traffic_sign_detector.utils.serialization import (
         write_results_file)
 
     files = list_frame_files(args.test_path)

@@ -30,6 +30,8 @@ import os
 import sys
 import time
 
+from traffic_sign_detector.utils.compile_cache import enable_compile_cache
+
 
 def _percentile(sorted_vals, p):
     if not sorted_vals:
@@ -39,6 +41,7 @@ def _percentile(sorted_vals, p):
 
 
 def main(argv=None) -> int:
+    enable_compile_cache()
     parser = argparse.ArgumentParser(description="Streaming sign detector")
     parser.add_argument("--watch_dir", required=True)
     parser.add_argument("--out", default="detections.jsonl")
@@ -69,8 +72,8 @@ def main(argv=None) -> int:
     parser.add_argument("--upscale", type=float, default=1.0,
                         help="CNN upscaled-inference QUALITY mode: frames "
                         "are virtually upscaled by this factor (1.6 is "
-                        "the measured sweet spot: F1 0.85 / AP 0.95 at "
-                        ">5,900 fps) with the resize folded into the stem "
+                        "the measured sweet spot: F1 0.85 / AP 0.95) with "
+                        "the resize folded into the stem "
                         "for fusable ratios (ops/fused_upscale.py — no "
                         "materialized upscaled frame), boxes emitted in "
                         "native coordinates; bgr/yuv420 ingest only")
@@ -84,19 +87,19 @@ def main(argv=None) -> int:
 
     import numpy as np
 
-    from opencv_traffic_sign_detector_tpu.config import (
+    from traffic_sign_detector.config import (
         ConfigError,
         MSERConfig,
         PipelineConfig,
     )
-    from opencv_traffic_sign_detector_tpu.data.images import (
+    from traffic_sign_detector.data.images import (
         list_frame_files,
         load_image_bgr,
     )
-    from opencv_traffic_sign_detector_tpu.models.detector import (
+    from traffic_sign_detector.models.detector import (
         DetectionPipeline,
     )
-    from opencv_traffic_sign_detector_tpu.models.mean_masks import (
+    from traffic_sign_detector.models.mean_masks import (
         MeanMaskTemplates,
         train_mean_masks,
     )
@@ -115,11 +118,11 @@ def main(argv=None) -> int:
     if use_cnn:
         # Flagship family: same dispatch/collect contract, trained weights
         # instead of mean-mask templates (models/cnn_detector.py).
-        from opencv_traffic_sign_detector_tpu.models.cnn_detector import (
+        from traffic_sign_detector.models.cnn_detector import (
             CNNDetectorConfig,
             saved_meta,
         )
-        from opencv_traffic_sign_detector_tpu.models.cnn_quant import (
+        from traffic_sign_detector.models.cnn_quant import (
             load_detector,
         )
 
@@ -154,7 +157,7 @@ def main(argv=None) -> int:
             def dispatch(self, frames):
                 # capture the frame bounds so collect can clip CNN boxes to
                 # the image (near-edge boxes otherwise leave the frame —
-                # ADVICE r3 #3; mirrors CNNDetector.run_directory)
+                # mirrors CNNDetector.run_directory)
                 if isinstance(frames, tuple):  # yuv420 planes (y, cb, cr)
                     s = 8 if frames[0].ndim == 4 else 1  # yuv420p patches
                     self._orig_hw = (int(frames[0].shape[1]) * s,
@@ -211,7 +214,7 @@ def main(argv=None) -> int:
         nonlocal n_frames
         if not batch_files:
             return
-        from opencv_traffic_sign_detector_tpu.data.prefetch import (
+        from traffic_sign_detector.data.prefetch import (
             batched_frames,
         )
 

@@ -12,15 +12,15 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from opencv_traffic_sign_detector_tpu.models import cnn_detector as cd
-from opencv_traffic_sign_detector_tpu.models import cnn_quant as cq
+from traffic_sign_detector.models import cnn_detector as cd
+from traffic_sign_detector.models import cnn_quant as cq
 
 
 @pytest.fixture(scope="module")
 def v3_setup():
     cfg = cd.CNNDetectorConfig(arch="v3", max_detections=8,
                                score_threshold=0.3)
-    params = dict(cd.init_params(cfg, 3, (64, 64)))
+    params = dict(cd.init_params(3))
     # make the detector fire somewhere so box-level checks are non-vacuous:
     # lift the heatmap bias and pin sizes positive
     params["Conv_4"] = {"kernel": params["Conv_4"]["kernel"],
@@ -33,15 +33,13 @@ def v3_setup():
 
 
 def test_float_activations_match_flax(v3_setup):
-    """The calibration-side float restatement == the flax v3 module
+    """The calibration-side float restatement == the float forward
     (same post-relu trunk activations feeding the heads)."""
     cfg, params, frames = v3_setup
-    f32cfg = cd.CNNDetectorConfig(arch="v3", dtype="float32")
     acts = cq.v3_float_activations(params, jnp.asarray(frames))
     # reconstruct head outputs from the last activation and compare with
     # the module's own outputs (f32 compute dtype isolates quant math)
-    out_ref = cd.SignCenterNet(f32cfg).apply({"params": params},
-                                             jnp.asarray(frames))
+    out_ref = cd.forward(params, jnp.asarray(frames), jnp.float32)
     from jax import lax
 
     h = acts[-1]
@@ -63,9 +61,7 @@ def test_int8_tracks_float(v3_setup):
     q = {k: jnp.asarray(v) for k, v in cq.quantize_v3(
         params, frames, percentile=100.0).items()}
     out_q = cq.v3_int8_forward(q, jnp.asarray(frames))
-    f32cfg = cd.CNNDetectorConfig(arch="v3", dtype="float32")
-    out_f = cd.SignCenterNet(f32cfg).apply({"params": params},
-                                           jnp.asarray(frames))
+    out_f = cd.forward(params, jnp.asarray(frames), jnp.float32)
     for name in ("hm", "size", "off"):
         a = np.asarray(out_q[name]).ravel()
         b = np.asarray(out_f[name]).ravel()
@@ -109,7 +105,7 @@ def test_patches8_layout_agrees(v3_setup):
     cfg, params, frames = v3_setup
     q = {k: jnp.asarray(v) for k, v in cq.quantize_v3(
         params, frames, percentile=100.0).items()}
-    patches = np.asarray(cq._patchify(jnp.asarray(frames)))
+    patches = np.asarray(cd.patchify(jnp.asarray(frames)))
     out_a = cq.v3_int8_forward(q, jnp.asarray(frames))
     out_b = cq.v3_int8_forward(q, jnp.asarray(patches))
     for name in ("hm", "size", "off"):
@@ -152,9 +148,7 @@ def test_float_heads_variant(v3_setup, tmp_path):
         params, frames, percentile=100.0, float_heads=True).items()}
     qi = {k: jnp.asarray(v) for k, v in cq.quantize_v3(
         params, frames, percentile=100.0).items()}
-    out_f = cd.SignCenterNet(
-        cd.CNNDetectorConfig(arch="v3", dtype="float32")).apply(
-        {"params": params}, jnp.asarray(frames))
+    out_f = cd.forward(params, jnp.asarray(frames), jnp.float32)
     err = {}
     for q, tag in ((qf, "fh"), (qi, "int")):
         out_q = cq.v3_int8_forward(q, jnp.asarray(frames))
@@ -182,29 +176,29 @@ def test_stem_affine_fold_is_exact():
     # weights on an exact int grid with per-channel max pinned at 127 so
     # _channel_scales lands exactly on the grid step and _quant_weight is
     # lossless
-    w_int = rng.integers(-126, 127, (cq._STEM_K, f)).astype(np.float32)
+    w_int = rng.integers(-126, 127, (cq.STEM_K, f)).astype(np.float32)
     w_int[0, :] = 127.0
     scale = 0.01
     params = {"Conv_0": {"kernel": (w_int * scale).reshape(8, 8, 3, f),
                          "bias": rng.standard_normal(f).astype(np.float32)}}
     x = rng.integers(0, 256, (2, 16, 24, 3)).astype(np.uint8)
 
-    k0 = params["Conv_0"]["kernel"].reshape(cq._STEM_K, f)
+    k0 = params["Conv_0"]["kernel"].reshape(cq.STEM_K, f)
     sw = cq._channel_scales(k0)
     qk = cq._quant_weight(k0, sw)
     np.testing.assert_allclose(qk * sw, k0, rtol=1e-6)
 
     xs = (x.astype(np.int64) - 128)
-    patches = np.asarray(cq._patchify(jnp.asarray(x))).astype(np.int64) - 128
-    acc = patches.reshape(-1, cq._STEM_K) @ qk.astype(np.int64)
+    patches = np.asarray(cd.patchify(jnp.asarray(x))).astype(np.int64) - 128
+    acc = patches.reshape(-1, cq.STEM_K) @ qk.astype(np.int64)
     got = np.maximum(
         acc.astype(np.float64) * (sw / 255.0)
         + params["Conv_0"]["bias"]
         + (128.0 / 255.0 - 0.5) * k0.sum(axis=0), 0.0)
 
-    xf = np.asarray(cq._patchify(jnp.asarray(x))).astype(np.float64) / 255.0 \
+    xf = np.asarray(cd.patchify(jnp.asarray(x))).astype(np.float64) / 255.0 \
         - 0.5
-    want = np.maximum(xf.reshape(-1, cq._STEM_K) @ k0.astype(np.float64)
+    want = np.maximum(xf.reshape(-1, cq.STEM_K) @ k0.astype(np.float64)
                       + params["Conv_0"]["bias"], 0.0)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
@@ -214,7 +208,7 @@ def test_int8_upscaled_dispatch_equals_manual(v3_setup, monkeypatch):
     device -> int8 detect -> boxes / s (same contract as the float
     detector's --upscale).  Plan finder disabled so the fallback path
     stays contracted; fused-path agreement is in test_fused_upscale.py."""
-    from opencv_traffic_sign_detector_tpu.ops import fused_upscale as fu
+    from traffic_sign_detector.ops import fused_upscale as fu
 
     monkeypatch.setattr(fu, "find_plan", lambda *a, **k: None)
     cfg, params, frames = v3_setup
@@ -233,3 +227,26 @@ def test_int8_upscaled_dispatch_equals_manual(v3_setup, monkeypatch):
     assert np.array_equal(v_up, v_ref)
     np.testing.assert_allclose(s_up, s_ref, atol=1e-5)
     np.testing.assert_allclose(b_up, b_ref, atol=1e-3)
+
+
+@pytest.mark.parametrize("hw,cin,cout,stride", [
+    ((100, 170), 64, 128, 2),   # Conv_1 at the GTSDB s8 grid
+    ((50, 85), 128, 16, 1),     # fused heads at the s16 grid
+    ((51, 86), 8, 10, 2),       # odd sizes: asymmetric SAME padding
+    ((7, 9), 4, 3, 1),
+])
+def test_conv_s8_matches_int_conv(hw, cin, cout, stride):
+    """The int8 GEMM formulation == XLA's s8 conv with int32 accumulation,
+    bit for bit (the conv is the reference; CUDA cannot lower it)."""
+    from jax import lax
+
+    rng = np.random.default_rng(sum(hw) + cin)
+    h = rng.integers(-128, 128, (2, *hw, cin)).astype(np.int8)
+    k = rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8)
+    got = np.asarray(cq.conv_s8(jnp.asarray(h), jnp.asarray(k), stride))
+    want = np.asarray(lax.conv_general_dilated(
+        h, k, (stride, stride), "SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        preferred_element_type=jnp.int32))
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)

@@ -1,6 +1,6 @@
 import pytest
 
-from opencv_traffic_sign_detector_tpu.config import (
+from traffic_sign_detector.config import (
     ClassifierConfig,
     ConfigError,
     MSERConfig,

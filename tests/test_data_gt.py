@@ -1,5 +1,5 @@
-from opencv_traffic_sign_detector_tpu.constants import supertype_of
-from opencv_traffic_sign_detector_tpu.data.gt import (
+from traffic_sign_detector.constants import supertype_of
+from traffic_sign_detector.data.gt import (
     boxes_by_file,
     load_ground_truth,
     load_results_file,

@@ -2,14 +2,14 @@
 
 import numpy as np
 
-from opencv_traffic_sign_detector_tpu.data.gt import GroundTruthBox, load_results_file
-from opencv_traffic_sign_detector_tpu.data.gt import load_ground_truth
-from opencv_traffic_sign_detector_tpu.eval.device_stats import (
+from traffic_sign_detector.data.gt import GroundTruthBox, load_results_file
+from traffic_sign_detector.data.gt import load_ground_truth
+from traffic_sign_detector.eval.device_stats import (
     distributed_statistics,
     frame_type_counts,
 )
-from opencv_traffic_sign_detector_tpu.eval.stats import compute_detection_statistics
-from opencv_traffic_sign_detector_tpu.parallel.mesh import data_mesh, shard_batch
+from traffic_sign_detector.eval.stats import compute_detection_statistics
+from traffic_sign_detector.parallel.mesh import data_mesh, shard_batch
 
 
 def _pad_frame(dets, gts, d_cap=32, g_cap=16):

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from opencv_traffic_sign_detector_tpu.ops.clahe import clahe_equalize
-from opencv_traffic_sign_detector_tpu.ops.dedup import dedup_by_coords
-from opencv_traffic_sign_detector_tpu.models.mean_masks import (
+from traffic_sign_detector.ops.clahe import clahe_equalize
+from traffic_sign_detector.ops.dedup import dedup_by_coords
+from traffic_sign_detector.models.mean_masks import (
     mask_correlation_classify,
 )
 

@@ -5,7 +5,7 @@ scoring implementation (filenames normalised to .jpg stems on both sides).
 import numpy as np
 import pytest
 
-from opencv_traffic_sign_detector_tpu.eval.ap import (
+from traffic_sign_detector.eval.ap import (
     average_precision_11pt,
     average_precision_voc,
     pr_from_tp_fp,
@@ -41,7 +41,7 @@ def test_voc_ap_simple():
 
 
 def test_pr_curve_ignore_regions(fixtures_dir):
-    from opencv_traffic_sign_detector_tpu.data.gt import (
+    from traffic_sign_detector.data.gt import (
         GroundTruthBox,
         load_ground_truth,
     )

@@ -6,8 +6,8 @@ import math
 
 import pytest
 
-from opencv_traffic_sign_detector_tpu.data.gt import load_results_file
-from opencv_traffic_sign_detector_tpu.eval.stats import (
+from traffic_sign_detector.data.gt import load_results_file
+from traffic_sign_detector.eval.stats import (
     TypeCounts,
     box_match_score,
     compute_detection_statistics,
@@ -55,9 +55,9 @@ def test_typecounts_nan_when_empty():
 
 
 def test_full_dataset_parity_artifact(fixtures_dir):
-    """Regression pin: the TPU pipeline's full-run artifact holds reference
+    """Regression pin: the device pipeline's full-run artifact holds reference
     parity (F1 0.15 vs 0.15) under the reference's own statistics engine."""
-    ours = load_results_file(str(fixtures_dir / "ours_resultado_tpu_ds2.txt"))
+    ours = load_results_file(str(fixtures_dir / "ours_resultado_ds2.txt"))
     stats = compute_detection_statistics(ours, str(fixtures_dir / "gt_test.txt"))
     assert stats.total.f1 >= 0.17
     assert stats.total.precision >= 0.09
@@ -70,7 +70,7 @@ def test_detection_artifact_r3(fixtures_dir):
     (ds=2, iters 2, step 9, 128 regions, batch 32).  Measured at pin time:
     281 dets, P 0.18 / R 0.28 / F1 0.22, AP 0.0698 — beats the reference
     (F1 0.15 / AP 0.043) and doubles r2's precision/AP at 3.3x its speed."""
-    ours = load_results_file(str(fixtures_dir / "ours_resultado_tpu_r3.txt"))
+    ours = load_results_file(str(fixtures_dir / "ours_resultado_r3.txt"))
     stats = compute_detection_statistics(ours, str(fixtures_dir / "gt_test.txt"))
     assert stats.total.f1 >= 0.21
     assert stats.total.precision >= 0.17
@@ -86,7 +86,7 @@ def test_recognition_artifact_r3(fixtures_dir):
     disabled; quality bar is the instructor's práctica-2 file
     (P 0.74 / R 0.74)."""
     ours = load_results_file(
-        str(fixtures_dir / "ours_rec_resultado_tpu_r3.txt")
+        str(fixtures_dir / "ours_rec_resultado_r3.txt")
     )
     stats = compute_detection_statistics(ours, str(fixtures_dir / "gt_test.txt"))
     assert stats.total.f1 >= 0.50
@@ -99,7 +99,7 @@ def test_full_dataset_parity_artifact_r2(fixtures_dir):
     """Round-2 regression pin: the shipped tuned config's full-run artifact
     (auto step 7, iters 8, scan refine) beats the reference on F1/P/R under
     the reference's own statistics engine."""
-    ours = load_results_file(str(fixtures_dir / "ours_resultado_tpu_r2.txt"))
+    ours = load_results_file(str(fixtures_dir / "ours_resultado_r2.txt"))
     stats = compute_detection_statistics(ours, str(fixtures_dir / "gt_test.txt"))
     assert stats.total.f1 >= 0.21
     assert stats.total.precision >= 0.14
@@ -116,18 +116,18 @@ def test_cnn_detection_artifact_r3(fixtures_dir):
     pipeline (F1 0.215 / AP 0.070), and the reference (F1 0.15 /
     AP 0.043) at 16x the parity pipeline's speed."""
     ours = load_results_file(
-        str(fixtures_dir / "ours_cnn_resultado_tpu.txt"))
+        str(fixtures_dir / "ours_cnn_resultado.txt"))
     stats = compute_detection_statistics(ours, str(fixtures_dir / "gt_test.txt"))
     assert stats.total.f1 >= 0.81
     assert stats.total.precision >= 0.92
     assert stats.total.recall >= 0.70
     assert stats.total.correct >= 125
 
-    from opencv_traffic_sign_detector_tpu.eval.ap import (
+    from traffic_sign_detector.eval.ap import (
         precision_recall_curve,
         pr_from_tp_fp,
     )
-    from opencv_traffic_sign_detector_tpu.data.gt import load_ground_truth
+    from traffic_sign_detector.data.gt import load_ground_truth
 
     gt = load_ground_truth(str(fixtures_dir / "gt_test.txt"))
     tp, fp, _t, n_gt = precision_recall_curve(gt, ours)

@@ -1,5 +1,5 @@
 """Folded upscale+patchify+stem (ops/fused_upscale.py) vs the two-stage
-product path it replaces (upscale_bilinear_u8 -> _PatchifyStem -> trunk)."""
+product path it replaces (upscale_bilinear_u8 -> stem_forward -> trunk)."""
 
 import math
 
@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opencv_traffic_sign_detector_tpu.ops import fused_upscale as fu
-from opencv_traffic_sign_detector_tpu.ops import upscale as up
+from traffic_sign_detector.ops import fused_upscale as fu
+from traffic_sign_detector.ops import upscale as up
 
 
 def test_plan_finder_hits_the_shipped_operating_points():
@@ -123,7 +123,7 @@ CKPT_INT8 = "artifacts/cnn_detector/params_int8.npz"
 def real_detector():
     import os
 
-    from opencv_traffic_sign_detector_tpu.models.cnn_detector import (
+    from traffic_sign_detector.models.cnn_detector import (
         CNNDetector,
     )
 
@@ -147,7 +147,7 @@ def test_fused_detect_agrees_with_two_stage_product_path(real_detector):
     assert plan is not None and (plan.t, plan.a) == (24, 17)
     assert (plan.h_pad, plan.w_pad) == (68, 68)
 
-    from opencv_traffic_sign_detector_tpu.models import cnn_detector as cd
+    from traffic_sign_detector.models import cnn_detector as cd
 
     fused = cd._detect_fused_upscaled_jit(
         det.cfg, det.params, jnp.asarray(frames), det.cfg.max_detections,
@@ -168,7 +168,7 @@ def test_fused_detect_agrees_with_two_stage_product_path(real_detector):
 def test_dispatch_routes_through_fused_plan(real_detector, monkeypatch):
     import copy
 
-    from opencv_traffic_sign_detector_tpu.models import cnn_detector as cd
+    from traffic_sign_detector.models import cnn_detector as cd
 
     det = copy.copy(real_detector)
     det.upscale = 1.412
@@ -190,7 +190,7 @@ def test_int8_fused_agrees_with_int8_two_stage():
     import copy
     import os
 
-    from opencv_traffic_sign_detector_tpu.models import cnn_quant as cq
+    from traffic_sign_detector.models import cnn_quant as cq
 
     if not os.path.exists(CKPT_INT8):
         pytest.skip("int8 artifact not present")
@@ -213,20 +213,19 @@ def test_int8_fused_agrees_with_int8_two_stage():
 
 
 def test_v3_trunk_heads_matches_full_network(real_detector):
-    """V3TrunkHeads over _PatchifyStem activations == SignCenterNet: the
-    split module must be parameter- and bit-compatible with the monolith."""
-    from opencv_traffic_sign_detector_tpu.models import cnn_detector as cd
+    """trunk_heads_forward over stem_forward activations == forward: the
+    split the fused-upscale path uses must be bit-compatible with the
+    whole network."""
+    from traffic_sign_detector.models import cnn_detector as cd
 
     det = real_detector
     rng = np.random.default_rng(7)
     frames = jnp.asarray(rng.integers(0, 256, (1, 64, 64, 3),
                                       dtype=np.uint8))
-    full = cd.SignCenterNet(det.cfg).apply({"params": det.params}, frames)
-    stem = cd._PatchifyStem(features=64, patch=8,
-                            dtype=det.cfg.compute_dtype()).apply(
-        {"params": det.params["Conv_0"]}, frames)
-    split = cd.V3TrunkHeads(det.cfg).apply(
-        {"params": cd._trunk_params(det.params)}, stem)
+    dt = det.cfg.compute_dtype()
+    full = cd.forward(det.params, frames, dt)
+    stem = cd.stem_forward(det.params["Conv_0"], frames, dt)
+    split = cd.trunk_heads_forward(det.params, stem, dt)
     for key in full:
         np.testing.assert_array_equal(np.asarray(full[key]),
                                       np.asarray(split[key]))

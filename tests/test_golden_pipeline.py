@@ -1,16 +1,16 @@
-"""Full-fidelity pipeline golden test (VERDICT r1 item 8).
+"""Full-fidelity pipeline golden test.
 
 Runs 8 real GTSDB frames through the exact shipped tuned config
 (downscale-2 sweep, 256 proposal slots, mask_corr_tol 0.55 — the config
 behind the pinned full-set parity artifacts) and matches the detection
 box set against a pinned expectation, per frame, by IoU.
 
-Scope caveat: on the CPU backend (what CI runs) `fused_sweep_ok` and
-`pallas_available_for` return False, so this pins the *XLA* sweep and the
-roll-flood refine — NOT the fused Pallas sweep / fused flood kernel the
-TPU path ships.  TPU-path regressions are caught by the opt-in TPU lane
-(``TSD_TPU_TESTS=1``, see tests/test_tpu_lane.py) and the per-round
-full-set artifact pins, not by this test.
+Scope caveat: the golden config keeps ``ccl_jumps=1``, so this pins the
+pixel-area sweep, not the CLI's bbox-area sweep; the bbox sweep, the scan
+flood and CLAHE are pinned bit for bit against the recorded kernel
+outputs in tests/fixtures/kernel_fixtures.npz (tests/test_ops_mser.py).
+The fixture predates the scan-flood refine on CPU (it was recorded with
+the roll flood); regenerate it when the frames are available.
 
 Regenerate the fixture after *intentional* quality changes with
 ``python scripts/gen_golden.py``.
@@ -29,7 +29,7 @@ sys.path.insert(
 
 from gen_golden import GOLDEN_FRAMES, OUT, run_golden_frames
 
-from opencv_traffic_sign_detector_tpu.data.gt import load_results_file
+from traffic_sign_detector.data.gt import load_results_file
 
 
 def _by_file(dets):

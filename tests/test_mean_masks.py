@@ -5,8 +5,8 @@ import pytest
 
 from conftest import require_cv2
 
-from opencv_traffic_sign_detector_tpu.constants import SUPERTYPE_CLASS_DIRS
-from opencv_traffic_sign_detector_tpu.models.mean_masks import (
+from traffic_sign_detector.constants import SUPERTYPE_CLASS_DIRS
+from traffic_sign_detector.models.mean_masks import (
     MeanMaskTemplates,
     mask_correlation_classify,
     train_mean_masks,

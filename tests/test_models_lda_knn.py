@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from opencv_traffic_sign_detector_tpu.models.knn import knn_fit, knn_predict
-from opencv_traffic_sign_detector_tpu.models.lda import (
+from traffic_sign_detector.models.knn import knn_fit, knn_predict
+from traffic_sign_detector.models.lda import (
     LDAParams,
     lda_fit,
     lda_predict_proba,
@@ -73,7 +73,7 @@ def test_lda_on_real_hog_descriptors(train_frames_dir):
     cv2 = pytest.importorskip("cv2")
     import os
 
-    from opencv_traffic_sign_detector_tpu.ops.hog import hog_descriptors
+    from traffic_sign_detector.ops.hog import hog_descriptors
 
     crops, labels = [], []
     for d, lab in (("14", 3.0), ("38", 6.0)):

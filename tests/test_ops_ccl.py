@@ -5,7 +5,7 @@ import pytest
 
 from conftest import require_cv2
 
-from opencv_traffic_sign_detector_tpu.ops.ccl import (
+from traffic_sign_detector.ops.ccl import (
     component_areas,
     label_components,
 )
@@ -97,7 +97,7 @@ def test_component_areas():
 
 
 def test_scan_ccl_matches_hook_ccl():
-    from opencv_traffic_sign_detector_tpu.ops.ccl import label_components_scan
+    from traffic_sign_detector.ops.ccl import label_components_scan
 
     rng = np.random.default_rng(21)
     # subcritical noise (small blobs): few alternations suffice; near the
@@ -111,7 +111,7 @@ def test_scan_ccl_matches_hook_ccl():
 
 
 def test_scan_ccl_ring_and_warm_start():
-    from opencv_traffic_sign_detector_tpu.ops.ccl import label_components_scan
+    from traffic_sign_detector.ops.ccl import label_components_scan
 
     yy, xx = np.mgrid[0:48, 0:48]
     r = np.hypot(yy - 24, xx - 24)
@@ -127,3 +127,63 @@ def test_scan_ccl_ring_and_warm_start():
     warm = np.asarray(label_components_scan(img <= 60, num_iters=4, init_labels=prev))
     ref2 = np.asarray(label_components(img <= 60, num_iters=14))
     np.testing.assert_array_equal(warm, ref2)
+
+
+# --- plain propagation vs the retired Pallas kernels' recorded outputs ---
+# (tests/fixtures/kernel_fixtures.npz, scripts/gen_kernel_fixtures.py)
+
+
+@pytest.fixture(scope="module")
+def kernel_fixtures(fixtures_dir):
+    return np.load(fixtures_dir / "kernel_fixtures.npz")
+
+
+@pytest.mark.parametrize("density", [0.2, 0.5])
+def test_roll_propagation_matches_kernel_fixture(kernel_fixtures, density):
+    """Two 8-roll rounds of propagate_min_keys == the 16-iteration
+    Pallas roll kernel it replaced, bit for bit."""
+    import jax.numpy as jnp
+
+    from traffic_sign_detector.ops.ccl import propagate_min_keys
+
+    tag = f"rolls_{int(density * 10)}"
+    keys = kernel_fixtures[f"{tag}_keys"]
+    mask = kernel_fixtures[f"{tag}_mask"]
+    out = propagate_min_keys(jnp.asarray(keys), jnp.asarray(mask), 2**21,
+                             num_rolls=8, num_jumps=0, edges_safe=True)
+    np.testing.assert_array_equal(np.asarray(out),
+                                  kernel_fixtures[f"{tag}_out"])
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_run_reduce_matches_numpy_runs(op):
+    """run_reduce gives every pixel of a mask run the reduction over its
+    whole run (both directions), and background the fill."""
+    import jax.numpy as jnp
+
+    from traffic_sign_detector.ops.ccl import run_reduce
+
+    rng = np.random.default_rng(4)
+    vals = rng.integers(0, 1000, (3, 17, 29)).astype(np.int32)
+    mask = rng.random(vals.shape) < 0.6
+    fill = 10**6 if op == "min" else -1
+    jop = jnp.minimum if op == "min" else jnp.maximum
+    npop = np.min if op == "min" else np.max
+    for axis in (-1, -2):
+        got = np.asarray(run_reduce(jnp.asarray(vals), jnp.asarray(mask),
+                                    fill, axis, jop))
+        v = np.moveaxis(vals, axis, -1)
+        m = np.moveaxis(mask, axis, -1)
+        want = np.full(v.shape, fill, np.int64)
+        for idx in np.ndindex(v.shape[:-1]):
+            x = 0
+            while x < v.shape[-1]:
+                if not m[idx][x]:
+                    x += 1
+                    continue
+                end = x
+                while end < v.shape[-1] and m[idx][end]:
+                    end += 1
+                want[idx][x:end] = npop(v[idx][x:end])
+                x = end
+        np.testing.assert_array_equal(got, np.moveaxis(want, -1, axis))

@@ -6,16 +6,16 @@ import pytest
 
 from conftest import require_cv2
 
-from opencv_traffic_sign_detector_tpu.ops.blur import gaussian_blur_3x3
-from opencv_traffic_sign_detector_tpu.ops.clahe import clahe_equalize
-from opencv_traffic_sign_detector_tpu.ops.color import (
+from traffic_sign_detector.ops.blur import gaussian_blur_3x3
+from traffic_sign_detector.ops.clahe import clahe_equalize
+from traffic_sign_detector.ops.color import (
     bgr_to_gray,
     bgr_to_hsv,
     color_mask,
     gamma_correct,
     gamma_lut,
 )
-from opencv_traffic_sign_detector_tpu.ops.preprocess import enhance_contrast
+from traffic_sign_detector.ops.preprocess import enhance_contrast
 
 
 @pytest.fixture(scope="module")
@@ -125,41 +125,29 @@ def test_clahe_close_to_opencv(frame):
     assert (diff == 0).mean() > 0.999
 
 
-@pytest.mark.slow  # full-frame oracle, ~20-95 s on CPU
-def test_clahe_pallas_matches_xla_path(frame):
-    """The TPU Pallas CLAHE kernels (interpret mode here) must agree with
-    the XLA reference path within +-1 gray level on ~all pixels."""
-    from opencv_traffic_sign_detector_tpu.ops.clahe_pallas import (
-        clahe_equalize_pallas,
-        pallas_ok_for,
-    )
+def test_clahe_pallas_histogram_exact(fixtures_dir):
+    """Tile histograms == the retired histogram kernel's recorded output
+    (tests/fixtures/kernel_fixtures.npz), bit for bit."""
+    from traffic_sign_detector.ops.clahe import _tile_histograms
 
-    cv2 = require_cv2()
-    gray = cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY)
-    h, w = gray.shape
-    h8, w8 = (h // 16) * 16, (w // 8) * 8  # pallas path geometry
-    gray = gray[:h8, :w8]
-    assert pallas_ok_for(h8, w8)
-    ref = np.asarray(clahe_equalize(gray)).astype(np.int32)
-    out = np.asarray(
-        clahe_equalize_pallas(jnp.asarray(gray[None]), interpret=True)[0]
-    ).astype(np.int32)
-    diff = np.abs(ref - out)
+    fix = np.load(fixtures_dir / "kernel_fixtures.npz")
+    for tag in ("noise", "scene"):
+        x = jnp.asarray(fix[f"clahe_{tag}_in"])
+        np.testing.assert_array_equal(np.asarray(_tile_histograms(x, 8)),
+                                      fix[f"clahe_{tag}_hist"], err_msg=tag)
+
+
+@pytest.mark.parametrize("tag", ["noise", "scene"])
+def test_clahe_matches_apply_kernel_fixture(fixtures_dir, tag):
+    """Full CLAHE vs the retired LUT-apply kernel's recorded output: that
+    kernel blended the LUTs in another float order, so rint may flip by one
+    gray level on a tiny pixel fraction — the same bound the cv2 oracle
+    tests use."""
+    fix = np.load(fixtures_dir / "kernel_fixtures.npz")
+    ours = np.asarray(clahe_equalize(jnp.asarray(fix[f"clahe_{tag}_in"])))
+    diff = np.abs(ours.astype(np.int32) - fix[f"clahe_{tag}_out"])
     assert diff.max() <= 1
     assert (diff == 0).mean() > 0.999
-
-
-def test_clahe_pallas_histogram_exact():
-    from opencv_traffic_sign_detector_tpu.ops.clahe import _tile_histograms
-    from opencv_traffic_sign_detector_tpu.ops.clahe_pallas import (
-        tile_histograms_pallas,
-    )
-
-    rng = np.random.default_rng(3)
-    x = jnp.asarray(rng.integers(0, 256, (2, 64, 128), np.uint8))
-    ref = np.asarray(_tile_histograms(x, 8))
-    out = np.asarray(tile_histograms_pallas(x, 8, interpret=True))
-    np.testing.assert_array_equal(ref, out)
 
 
 @pytest.mark.slow  # full-frame oracle, ~20-95 s on CPU
@@ -194,7 +182,7 @@ def test_hsv_div_arithmetic_matches_tables():
     reformulation's exactness proof, ops/color.py)."""
     import numpy as np
 
-    from opencv_traffic_sign_detector_tpu.ops.color import (
+    from traffic_sign_detector.ops.color import (
         _HSV_SHIFT,
         _hdiv_table,
         _sdiv_table,

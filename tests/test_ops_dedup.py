@@ -12,12 +12,12 @@ import pytest
 
 from conftest import require_cv2
 
-from opencv_traffic_sign_detector_tpu.constants import DEDUP_MERGE_BAND
-from opencv_traffic_sign_detector_tpu.ops.dedup import (
+from traffic_sign_detector.constants import DEDUP_MERGE_BAND
+from traffic_sign_detector.ops.dedup import (
     dedup_by_coords,
     dedup_by_histogram,
 )
-from opencv_traffic_sign_detector_tpu.eval.stats import box_match_score
+from traffic_sign_detector.eval.stats import box_match_score
 
 
 def _oracle_coord_fold(boxes, tol):

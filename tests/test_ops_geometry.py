@@ -3,15 +3,15 @@ import pytest
 
 from conftest import require_cv2
 
-from opencv_traffic_sign_detector_tpu.ops.geometry import (
+from traffic_sign_detector.ops.geometry import (
     boxes_match_score,
     filter_and_grow_boxes,
     iou_matrix,
     pairwise_coord_similarity,
     sigmoid_distance_similarity,
 )
-from opencv_traffic_sign_detector_tpu.ops.resize import crop_and_resize
-from opencv_traffic_sign_detector_tpu.eval.stats import (
+from traffic_sign_detector.ops.resize import crop_and_resize
+from traffic_sign_detector.eval.stats import (
     box_match_score as host_match_score,
 )
 
@@ -63,7 +63,7 @@ def test_sigmoid_similarity_matches_host():
         (100, (0, 0, 100, 0)),
     ]:
         ours = float(sigmoid_distance_similarity(np.array(float(d))))
-        from opencv_traffic_sign_detector_tpu.eval.stats import (
+        from traffic_sign_detector.eval.stats import (
             sigmoid_distance_similarity as host_sim,
         )
 

@@ -3,7 +3,7 @@ import pytest
 
 from conftest import require_cv2
 
-from opencv_traffic_sign_detector_tpu.ops.histogram import (
+from traffic_sign_detector.ops.histogram import (
     correlation_matrix,
     hist_correlation,
     hs_histograms,

@@ -6,13 +6,25 @@ boxes rather than set equality; end-to-end detection parity is covered by the
 pipeline tests.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 
 from conftest import require_cv2
 
-from opencv_traffic_sign_detector_tpu.config import MSERConfig
-from opencv_traffic_sign_detector_tpu.ops.mser import mser_regions
+from traffic_sign_detector.config import MSERConfig
+from traffic_sign_detector.ops.mser import mser_regions
+
+sys.path.insert(0, os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts"))
+
+from gen_kernel_fixtures import (  # noqa: E402
+    flood_cases,
+    sweep_cases,
+    sweep_setup,
+)
 
 
 def _iou_xywh(a, b):
@@ -117,56 +129,80 @@ def test_recall_vs_opencv_on_real_crop(test_frames_dir):
     assert any(_iou_xywh(sign, ob) >= 0.5 for ob in ours)
 
 
+
+
+# ---------------------------------------------------------------------------
+# bbox-area sweep + scan flood vs the retired Pallas kernels' recorded
+# outputs (tests/fixtures/kernel_fixtures.npz; inputs and configs from
+# scripts/gen_kernel_fixtures.py, which produced them through the Pallas
+# interpreter).  The plain lax versions must match bit for bit.
+# ---------------------------------------------------------------------------
+
+SWEEP_CASES = sweep_cases()
+
+
+@pytest.fixture(scope="module")
+def kfix(fixtures_dir):
+    return np.load(fixtures_dir / "kernel_fixtures.npz")
+
+
+def _full(name):
+    from traffic_sign_detector.ops.mser import (
+        bbox_level_sweep_full,
+    )
+
+    g, cfg = SWEEP_CASES[name]
+    im2, levels, d_idx = sweep_setup(g, cfg)
+    return np.asarray(bbox_level_sweep_full(im2, cfg, d_idx, len(levels)))
+
+
+def _packed(name):
+    """Plain packed map on the pool-padded frame, as mser_regions runs it."""
+    import jax.numpy as jnp
+
+    from traffic_sign_detector.ops.mser import bbox_level_sweep
+
+    g, cfg = SWEEP_CASES[name]
+    im2, levels, d_idx = sweep_setup(g, cfg)
+    pool = max(1, cfg.topk_pool)
+    h, w = im2.shape[1:]
+    hp, wp = -(-h // pool) * pool, -(-w // pool) * pool
+    im2 = jnp.pad(im2, ((0, 0), (0, hp - h), (0, wp - w)),
+                  constant_values=255)
+    return np.asarray(bbox_level_sweep(im2, cfg, d_idx, len(levels)))
+
+
+@pytest.mark.parametrize("name", ["rects_nodiv", "sqrect", "scene",
+                                  "scene_ext"])
+def test_full_map_matches_kernel_fixture(kfix, name):
+    np.testing.assert_array_equal(_full(name), kfix[f"sweep_{name}_full"])
+
+
 class TestFusedSweep:
-    """Fused Pallas sweep (interpret mode) vs the XLA reference sweep."""
+    """bbox-area sweep (``fused_sweep``) vs the pixel-area sweep and its
+    own properties."""
 
-    @staticmethod
-    def _sweeps(g, cfg):
-        import jax.numpy as jnp
-
-        from opencv_traffic_sign_detector_tpu.ops import mser as M
-        from opencv_traffic_sign_detector_tpu.ops.mser_pallas import (
-            fused_level_sweep_full,
-        )
-
-        s = cfg.level_step if cfg.level_step > 0 else cfg.delta
-        d_idx = max(1, round(cfg.delta / s))
-        levels = list(range(0, 256 + (d_idx + 1) * s + 1, s))
-        gq = jnp.asarray(g)
-        both = jnp.stack([gq.astype(jnp.int32), 255 - gq.astype(jnp.int32)])
-        im2 = jnp.pad(both, ((0, 0), (1, 1), (1, 1)), constant_values=255)
-        sb_x = np.asarray(M._level_sweep(im2, levels, cfg, d_idx))
-        sb_f = np.asarray(
-            fused_level_sweep_full(im2, cfg, d_idx, len(levels), interpret=True)
-        )
-        h, w = im2.shape[1:]
-        sb_x4 = sb_x.reshape(len(levels), 2, h, w).transpose(1, 0, 2, 3)
-        return sb_x4, sb_f
-
-    def test_rectangles_agree_with_xla_sweep(self):
+    def test_rectangles_agree_with_xla_sweep(self, kfix):
         # solid rectangles: bbox area == pixel area, so the two stability
         # definitions coincide and candidate maps should nearly match
-        g = np.full((126, 158), 200, np.uint8)
-        g[40:60, 50:70] = 30
-        g[80:100, 100:124] = 90
-        cfg = MSERConfig(min_area=60, max_area=1200, max_variation=1.0,
-                         level_step=5, ccl_iters=16, ccl_jumps=0,
-                         max_regions=32)
-        sb_x4, sb_f = self._sweeps(g, cfg)
+        from traffic_sign_detector.ops import mser as M
+
+        g, cfg = SWEEP_CASES["rects"]
+        im2, levels, d_idx = sweep_setup(g, cfg)
+        sb_x = np.asarray(M._level_sweep(im2, levels, cfg, d_idx))
+        h, w = im2.shape[1:]
+        sb_x4 = sb_x.reshape(len(levels), 2, h, w).transpose(1, 0, 2, 3)
+        sb_f = _full("rects")
+        np.testing.assert_array_equal(sb_f, kfix["sweep_rects_full"])
         assert (sb_x4 == sb_f).mean() > 0.999
-        # both squares found by the fused sweep at their anchor pixel
+        # both squares found at their anchor pixel
         assert sb_f[0, :, 41, 51].max() > 0
         assert sb_f[0, :, 81, 101].max() > 0
 
-    def test_min_diversity_prunes_nested_reemissions(self):
-        g = np.full((126, 158), 200, np.uint8)
-        g[40:60, 50:70] = 30
-        base = dict(min_area=60, max_area=1200, max_variation=1.0,
-                    level_step=5, ccl_iters=16, ccl_jumps=0, max_regions=32)
-        cfg_div = MSERConfig(min_diversity=0.2, **base)
-        cfg_nodiv = MSERConfig(min_diversity=0.0, **base)
-        _, sb_div = self._sweeps(g, cfg_div)
-        _, sb_nodiv = self._sweeps(g, cfg_nodiv)
+    def test_min_diversity_prunes_nested_reemissions(self, kfix):
+        sb_div = _full("rects")
+        sb_nodiv = _full("rects_nodiv")
+        np.testing.assert_array_equal(sb_nodiv, kfix["sweep_rects_nodiv_full"])
         n_div = (sb_div[0, :, 41, 51] > 0).sum()
         n_nodiv = (sb_nodiv[0, :, 41, 51] > 0).sum()
         # a constant-size region must emit exactly once under diversity
@@ -174,50 +210,34 @@ class TestFusedSweep:
         assert n_div == 1
         assert n_nodiv > 3
 
-    def test_fused_pipeline_detects_square_on_cpu_interpret(self):
-        # whole mser_regions path with the fused sweep forced via interpret
-        from opencv_traffic_sign_detector_tpu.ops import mser_pallas
+    def test_fused_pipeline_detects_square_on_cpu_interpret(self, kfix):
+        """The whole proposal path at the detection CLI's operating point
+        (downscale 2, 2 roll rounds, step 9, scan-flood refine) reproduces
+        the retired kernels' boxes exactly."""
+        import dataclasses
 
-        g = np.full((126, 158), 200, np.uint8)
-        g[40:60, 50:70] = 30
-        cfg = MSERConfig(min_area=60, max_area=1200, max_variation=1.0,
-                         level_step=5, ccl_iters=16, ccl_jumps=0,
-                         max_regions=32)
-        sb_x4, sb_f = self._sweeps(g, cfg)
-        # top-k pooled decode finds the square's anchor
         import jax.numpy as jnp
 
-        from opencv_traffic_sign_detector_tpu.ops.mser import mser_regions
+        from traffic_sign_detector.ops.mser import mser_regions
 
-        # (pooled decode is exercised on TPU; here assert candidate parity)
-        assert sb_f[0, :, 41, 51].max() == sb_x4[0, :, 41, 51].max()
+        cfg = dataclasses.replace(MSERConfig(), downscale=2, ccl_iters=2,
+                                  level_step=9, ccl_jumps=0,
+                                  max_regions=128)
+        boxes, valid = mser_regions(jnp.asarray(kfix["mser_cli_gray"]), cfg)
+        assert int(np.asarray(valid).sum()) > 0
+        np.testing.assert_array_equal(np.asarray(valid),
+                                      kfix["mser_cli_valid"])
+        np.testing.assert_array_equal(np.asarray(boxes),
+                                      kfix["mser_cli_boxes"])
 
 
-def test_extent_only_sweep_matches_on_squares():
-    """Extent-only (3-channel) fused sweep: squared-height area proxy equals
-    bbox area on square components, so candidate maps must match the full
-    5-channel fused sweep there."""
-    import jax.numpy as jnp
-
-    from opencv_traffic_sign_detector_tpu.ops.mser_pallas import (
-        fused_level_sweep_full,
-    )
-
-    g = np.full((126, 158), 200, np.uint8)
-    g[40:60, 50:70] = 30
-    g[80:100, 100:120] = 90
-    base = dict(min_area=60, max_area=1200, max_variation=1.0,
-                level_step=5, ccl_iters=16, ccl_jumps=0, max_regions=32)
-    cfg5 = MSERConfig(**base)
-    cfg3 = MSERConfig(sweep_extent_only=True, **base)
-    s = 5
-    d_idx = 1
-    levels = list(range(0, 256 + (d_idx + 1) * s + 1, s))
-    gq = jnp.asarray(g)
-    both = jnp.stack([gq.astype(jnp.int32), 255 - gq.astype(jnp.int32)])
-    im2 = jnp.pad(both, ((0, 0), (1, 1), (1, 1)), constant_values=255)
-    sb5 = np.asarray(fused_level_sweep_full(im2, cfg5, d_idx, len(levels), interpret=True))
-    sb3 = np.asarray(fused_level_sweep_full(im2, cfg3, d_idx, len(levels), interpret=True))
+def test_extent_only_sweep_matches_on_squares(kfix):
+    """Extent-only (3-channel) sweep: squared-height area proxy equals bbox
+    area on square components, so candidate maps must match the full
+    5-channel sweep there."""
+    sb5 = _full("sqrect")
+    sb3 = _full("sqrect_ext")
+    np.testing.assert_array_equal(sb3, kfix["sweep_sqrect_ext_full"])
     assert sb3[0, :, 41, 51].max() > 0
     assert sb3[0, :, 81, 101].max() > 0
     np.testing.assert_array_equal(sb3[0, :, 41, 51], sb5[0, :, 41, 51])
@@ -231,8 +251,8 @@ def test_scan_propagation_matches_roll_candidates():
     convergence may legally emit a slow-to-flood shape a step earlier."""
     import jax.numpy as jnp
 
-    from opencv_traffic_sign_detector_tpu.ops.mser_pallas import (
-        fused_level_sweep_full,
+    from traffic_sign_detector.ops.mser import (
+        bbox_level_sweep_full,
     )
 
     g = np.full((126, 158), 200, np.uint8)
@@ -248,14 +268,10 @@ def test_scan_propagation_matches_roll_candidates():
     gq = jnp.asarray(g)
     both = jnp.stack([gq.astype(jnp.int32), 255 - gq.astype(jnp.int32)])
     im2 = jnp.pad(both, ((0, 0), (1, 1), (1, 1)), constant_values=255)
-    sb_roll = np.asarray(
-        fused_level_sweep_full(im2, MSERConfig(**base), d_idx, len(levels),
-                          interpret=True)
-    )
-    sb_scan = np.asarray(
-        fused_level_sweep_full(im2, MSERConfig(scan_passes=2, **base), d_idx,
-                          len(levels), interpret=True)
-    )
+    sb_roll = np.asarray(bbox_level_sweep_full(
+        im2, MSERConfig(**base), d_idx, len(levels)))
+    sb_scan = np.asarray(bbox_level_sweep_full(
+        im2, MSERConfig(scan_passes=2, **base), d_idx, len(levels)))
     anchors_roll = {(p, y, x) for p, _, y, x in zip(*np.nonzero(sb_roll))}
     anchors_scan = {(p, y, x) for p, _, y, x in zip(*np.nonzero(sb_scan))}
     assert anchors_scan == anchors_roll
@@ -264,19 +280,8 @@ def test_scan_propagation_matches_roll_candidates():
 
 
 class TestPooledTiledSweep:
-    """The production pooled/strip-tiled sweep vs the full byte-map oracle."""
-
-    @staticmethod
-    def _setup(g, cfg):
-        import jax.numpy as jnp
-
-        s = cfg.level_step if cfg.level_step > 0 else cfg.delta
-        d_idx = max(1, round(cfg.delta / s))
-        levels = list(range(0, 256 + (d_idx + 1) * s + 1, s))
-        gq = jnp.asarray(g)
-        both = jnp.stack([gq.astype(jnp.int32), 255 - gq.astype(jnp.int32)])
-        im2 = jnp.pad(both, ((0, 0), (1, 1), (1, 1)), constant_values=255)
-        return im2, levels, d_idx
+    """The level-collapsed packed map vs the full byte maps and the
+    retired kernel's single- and multi-strip outputs."""
 
     @staticmethod
     def _expected_packed(sb_full, lbits, hp, wp):
@@ -288,95 +293,137 @@ class TestPooledTiledSweep:
         return (x * (1 << lbits) + lv).max(axis=1)
 
     def test_collapsed_output_matches_full_map(self):
-        import numpy as np
+        from traffic_sign_detector.ops.mser import packing_bits
 
-        from opencv_traffic_sign_detector_tpu.ops.mser_pallas import (
-            fused_level_sweep,
-            fused_level_sweep_full,
-            packing_bits,
-            sweep_plan,
-        )
-
-        g = np.full((126, 158), 200, np.uint8)
-        g[40:60, 50:70] = 30
-        g[80:100, 100:124] = 90
-        cfg = MSERConfig(min_area=60, max_area=1200, max_variation=1.0,
-                         level_step=5, ccl_iters=16, ccl_jumps=0,
-                         max_regions=32, topk_pool=4)
-        im2, levels, d_idx = self._setup(g, cfg)
-        sb_full = np.asarray(
-            fused_level_sweep_full(im2, cfg, d_idx, len(levels),
-                                   interpret=True)
-        )
-        packed = np.asarray(
-            fused_level_sweep(im2, cfg, d_idx, len(levels), interpret=True)
-        )
-        plan = sweep_plan(im2.shape[1], im2.shape[2], cfg.topk_pool)
-        assert plan[0] == 1  # single strip at this size
+        g, cfg = SWEEP_CASES["rects"]
+        _, levels, _ = sweep_setup(g, cfg)
+        packed = _packed("rects")
         _, lbits = packing_bits(cfg.topk_pool, len(levels))
-        exp = self._expected_packed(sb_full, lbits,
-                                    packed.shape[1], packed.shape[2])
-        np.testing.assert_array_equal(packed, exp.astype(np.int64))
+        exp = self._expected_packed(_full("rects"), lbits, *packed.shape[1:])
+        np.testing.assert_array_equal(packed, exp)
 
-    def test_multi_strip_finds_candidates_in_every_strip(self, monkeypatch):
-        import numpy as np
+    def test_multi_strip_finds_candidates_in_every_strip(self, kfix):
+        """Packed map == the kernel's single-strip output at two
+        geometries (the kernel padded rows to 8, so compare the overlap);
+        every planted shape's anchor emits."""
+        from traffic_sign_detector.ops.mser import packing_bits
 
-        from opencv_traffic_sign_detector_tpu.ops import mser_pallas as MP
+        anchors = {"strips": [(21, 31), (121, 21), (211, 41)],
+                   "rects": [(41, 51), (81, 101)]}
+        for name, points in anchors.items():
+            packed = _packed(name)
+            ref = kfix[f"sweep_{name}_packed"]
+            h = min(packed.shape[1], ref.shape[1])
+            np.testing.assert_array_equal(packed[:, :h], ref[:, :h])
+            g, cfg = SWEEP_CASES[name]
+            _, levels, _ = sweep_setup(g, cfg)
+            _, lbits = packing_bits(cfg.topk_pool, len(levels))
+            for ay, ax in points:
+                assert (packed[0, ay, ax] >> lbits) > 0, (name, ay, ax)
 
-        # shrink the budget so this 158-col frame needs several strips
-        # (core 40 rows, halo 24 via _HALO patch)
-        monkeypatch.setattr(MP, "_VMEM_PX", 160 * 88)
-        monkeypatch.setattr(MP, "_HALO_MIN", 24)
-        monkeypatch.setattr(MP, "_HALO_MAX", 24)
-        g = np.full((256, 80), 200, np.uint8)
-        g[20:44, 30:54] = 30     # strip 0
-        g[120:144, 20:44] = 60   # middle strip, crosses a boundary region
-        g[210:234, 40:64] = 90   # last strip
-        cfg = MSERConfig(min_area=60, max_area=1200, max_variation=1.0,
-                         level_step=5, ccl_iters=16, ccl_jumps=0,
-                         max_regions=32, topk_pool=4)
-        im2, levels, d_idx = self._setup(g, cfg)
-        h, w = im2.shape[1], im2.shape[2]
-        plan = MP.sweep_plan(h, w, cfg.topk_pool, MP.plan_halo(cfg))
-        assert plan is not None and plan[0] >= 3, plan
-        packed = np.asarray(
-            MP.fused_level_sweep(im2, cfg, d_idx, len(levels),
-                                 interpret=True)
-        )
-        _, lbits = MP.packing_bits(cfg.topk_pool, len(levels))
-        sb = packed >> lbits  # per-pixel stability byte
-        # each synthetic square's anchor (top-left + border pad) must emit
-        for (ay, ax) in [(21, 31), (121, 21), (211, 41)]:
-            assert sb[0, ay, ax] > 0, (ay, ax)
+    def test_multi_strip_matches_single_strip_candidates(self, kfix):
+        """Sign-sized components fit the tiled kernel's halo, so its
+        strip-tiled stability bytes equal the whole-frame sweep's."""
+        from traffic_sign_detector.ops.mser import packing_bits
 
-    def test_multi_strip_matches_single_strip_candidates(self, monkeypatch):
-        import numpy as np
+        g, cfg = SWEEP_CASES["strips"]
+        _, levels, _ = sweep_setup(g, cfg)
+        _, lbits = packing_bits(cfg.topk_pool, len(levels))
+        sb = _packed("strips") >> lbits
+        tiled = kfix["sweep_strips_tiled_packed"] >> lbits
+        np.testing.assert_array_equal(tiled[:, :sb.shape[1]], sb)
 
-        from opencv_traffic_sign_detector_tpu.ops import mser_pallas as MP
 
-        g = np.full((256, 80), 200, np.uint8)
-        g[20:44, 30:54] = 30
-        g[120:144, 20:44] = 60
-        g[210:234, 40:64] = 90
-        cfg = MSERConfig(min_area=60, max_area=1200, max_variation=1.0,
-                         level_step=5, ccl_iters=16, ccl_jumps=0,
-                         max_regions=32, topk_pool=4)
-        im2, levels, d_idx = self._setup(g, cfg)
-        single = np.asarray(
-            MP.fused_level_sweep(im2, cfg, d_idx, len(levels),
-                                 interpret=True)
-        )
-        monkeypatch.setattr(MP, "_VMEM_PX", 160 * 88)
-        monkeypatch.setattr(MP, "_HALO_MIN", 24)
-        monkeypatch.setattr(MP, "_HALO_MAX", 24)
-        MP.fused_level_sweep.clear_cache()
-        tiled = np.asarray(
-            MP.fused_level_sweep(im2, cfg, d_idx, len(levels),
-                                 interpret=True)
-        )
-        MP.fused_level_sweep.clear_cache()
-        _, lbits = MP.packing_bits(cfg.topk_pool, len(levels))
-        sb_s = single >> lbits
-        sb_t = tiled[:, : sb_s.shape[1]] >> lbits
-        # sign-sized components fit the halo, so candidate blocks agree
-        np.testing.assert_array_equal(sb_t, sb_s)
+# ---------------------------------------------------------------------------
+# refinement flood
+# ---------------------------------------------------------------------------
+
+FLOOD_CASES = flood_cases()
+
+
+def _seed_yx(seed_maps):
+    """[N, H, W] seed maps (0 at the seed) -> [N, 2] (y, x) seeds."""
+    import jax.numpy as jnp
+
+    n, h, w = seed_maps.shape
+    flat = np.argmin(seed_maps.reshape(n, -1), axis=1)
+    return jnp.asarray(np.stack([flat // w, flat % w], -1), jnp.int32)
+
+
+def _bfs_component(mask2d, seed_yx):
+    from collections import deque
+
+    h, w = mask2d.shape
+    want = np.zeros((h, w), bool)
+    sy, sx = seed_yx
+    if not mask2d[sy, sx]:
+        return want
+    q = deque([(sy, sx)])
+    want[sy, sx] = True
+    while q:
+        y, x = q.popleft()
+        for dy, dx in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+            yy, xx = y + dy, x + dx
+            if (0 <= yy < h and 0 <= xx < w and mask2d[yy, xx]
+                    and not want[yy, xx]):
+                want[yy, xx] = True
+                q.append((yy, xx))
+    return want
+
+
+@pytest.mark.parametrize("name", sorted(FLOOD_CASES))
+def test_flood_bbox_matches_kernel_fixture(kfix, name):
+    """Plain scan flood + bbox reductions == the fused flood+bbox kernel."""
+    import jax.numpy as jnp
+
+    from traffic_sign_detector.ops.mser import flood_bbox
+
+    seeds, masks, big, passes = FLOOD_CASES[name]
+    out = np.stack(flood_bbox(jnp.asarray(masks), _seed_yx(seeds), big,
+                              passes), axis=-1)
+    np.testing.assert_array_equal(out, kfix[f"flood_{name}_out"])
+
+
+def test_scan_flood_matches_bfs():
+    """The segmented-scan flood reaches exactly the seed's component on
+    sign-like shapes (blob + leg, ring) — checked against a BFS oracle
+    through its bbox and area."""
+    import jax.numpy as jnp
+
+    from traffic_sign_detector.ops.mser import flood_bbox
+
+    seeds, masks, big, passes = FLOOD_CASES["shapes64"]
+    out = np.stack(flood_bbox(jnp.asarray(masks), _seed_yx(seeds), big,
+                              passes), axis=-1)
+    for p in range(seeds.shape[0]):
+        sy, sx = np.argwhere(seeds[p] == 0)[0]
+        comp = _bfs_component(masks[p], (sy, sx))
+        ys, xs = np.nonzero(comp)
+        if comp.any():
+            exp = (ys.min(), ys.max(), xs.min(), xs.max(), comp.sum())
+        else:
+            exp = (big, -1, big, -1, 0)
+        assert tuple(out[p]) == tuple(int(v) for v in exp), (p, out[p], exp)
+
+
+@pytest.mark.gpu
+def test_cuda_flood_matches_scan_flood():
+    """The CUDA flood kernel == the plain scan flood, bit for bit (the
+    same comparison chip_smoke.py's MSER phase makes at full size)."""
+    import jax
+    import jax.numpy as jnp
+
+    from traffic_sign_detector.ops import flood_cuda
+    from traffic_sign_detector.ops import mser as M
+
+    if not flood_cuda.available():
+        pytest.skip("needs a CUDA device: the flood kernel has no CPU or "
+                    "interpret mode (chip_smoke.py checks it on the card)")
+    for name, (seeds, masks, big, passes) in FLOOD_CASES.items():
+        m, s = jnp.asarray(masks), _seed_yx(seeds)
+        got = jax.jit(lambda m, s: flood_cuda.flood_bbox_cuda(
+            m, s, big=big, passes=passes))(m, s)
+        want = M._flood_bbox_scan(m, s, big=big, passes=passes)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w),
+                                          err_msg=name)

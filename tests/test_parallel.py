@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opencv_traffic_sign_detector_tpu.config import MSERConfig
-from opencv_traffic_sign_detector_tpu.parallel.mesh import (
+from traffic_sign_detector.config import MSERConfig
+from traffic_sign_detector.parallel.mesh import (
     DATA_AXIS,
     batch_sharding,
     data_mesh,
     shard_batch,
 )
-from opencv_traffic_sign_detector_tpu.parallel.train import (
+from traffic_sign_detector.parallel.train import (
     distributed_lda_fit,
     distributed_train_step,
     lda_from_statistics,
@@ -67,9 +67,9 @@ def test_distributed_lda_fit_matches_single_device():
 def test_sharded_detect_batch_matches_single_device():
     """Multi-chip *inference*: detect_batch sharded over the mesh equals the
     single-device run bit-for-bit (no cross-frame dependence)."""
-    from opencv_traffic_sign_detector_tpu.config import PipelineConfig
-    from opencv_traffic_sign_detector_tpu.models.detector import detect_batch
-    from opencv_traffic_sign_detector_tpu.parallel.mesh import sharded_detect_fn
+    from traffic_sign_detector.config import PipelineConfig
+    from traffic_sign_detector.models.detector import detect_batch
+    from traffic_sign_detector.parallel.mesh import sharded_detect_fn
 
     rng = np.random.default_rng(21)
     b, h, w = 8, 128, 160
@@ -103,15 +103,15 @@ def test_sharded_recognize_batch_matches_single_device():
     """Multi-chip recognition inference: recognize_batch sharded over the
     mesh equals the single-device run bit-for-bit (LDABAYES heads
     replicated, frames batch-sharded, zero collectives)."""
-    from opencv_traffic_sign_detector_tpu.config import (
+    from traffic_sign_detector.config import (
         ClassifierConfig,
         PipelineConfig,
     )
-    from opencv_traffic_sign_detector_tpu.models.lda import lda_fit
-    from opencv_traffic_sign_detector_tpu.models.rec_pipeline import (
+    from traffic_sign_detector.models.lda import lda_fit
+    from traffic_sign_detector.models.rec_pipeline import (
         recognize_batch,
     )
-    from opencv_traffic_sign_detector_tpu.parallel.mesh import (
+    from traffic_sign_detector.parallel.mesh import (
         sharded_recognize_fn,
     )
 
@@ -154,11 +154,11 @@ def test_sharded_recognize_batch_matches_single_device():
 @pytest.mark.slow
 def test_detection_pipeline_accepts_mesh():
     """DetectionPipeline(mesh=...) routes batches through the sharded fn."""
-    from opencv_traffic_sign_detector_tpu.config import PipelineConfig
-    from opencv_traffic_sign_detector_tpu.models.detector import (
+    from traffic_sign_detector.config import PipelineConfig
+    from traffic_sign_detector.models.detector import (
         DetectionPipeline,
     )
-    from opencv_traffic_sign_detector_tpu.models.mean_masks import (
+    from traffic_sign_detector.models.mean_masks import (
         MeanMaskTemplates,
     )
 
@@ -197,25 +197,25 @@ def test_detection_pipeline_accepts_mesh():
 
 @pytest.mark.slow
 def test_distributed_head_fit_parity_with_lda_fit_on_real_hog():
-    """VERDICT r2 item 3: the SPMD sufficient-statistics head fit must agree
+    """The SPMD sufficient-statistics head fit must agree
     with the sklearn-parity svd path (`models/lda.py:62` lda_fit) on real
     HOG descriptors — >= 99 % predicted-label agreement per head."""
     import os
 
-    from opencv_traffic_sign_detector_tpu.data.gt import load_ground_truth
-    from opencv_traffic_sign_detector_tpu.data.images import load_image_bgr
-    from opencv_traffic_sign_detector_tpu.models.lda import (
+    from traffic_sign_detector.data.gt import load_ground_truth
+    from traffic_sign_detector.data.images import load_image_bgr
+    from traffic_sign_detector.models.lda import (
         lda_fit,
         lda_predict_proba,
     )
-    from opencv_traffic_sign_detector_tpu.models.recognizer import (
+    from traffic_sign_detector.models.recognizer import (
         SignClassifier,
     )
-    from opencv_traffic_sign_detector_tpu.config import ClassifierConfig
-    from opencv_traffic_sign_detector_tpu.ops.color import bgr_to_gray
-    from opencv_traffic_sign_detector_tpu.ops.hog import hog_descriptors
-    from opencv_traffic_sign_detector_tpu.ops.resize import crop_and_resize
-    from opencv_traffic_sign_detector_tpu.parallel.train import (
+    from traffic_sign_detector.config import ClassifierConfig
+    from traffic_sign_detector.ops.color import bgr_to_gray
+    from traffic_sign_detector.ops.hog import hog_descriptors
+    from traffic_sign_detector.ops.resize import crop_and_resize
+    from traffic_sign_detector.parallel.train import (
         fit_classifier_distributed,
     )
 
@@ -316,7 +316,7 @@ def test_distributed_train_step_compiles_and_runs():
 
 def test_host_shard_files_disjoint_and_balanced():
     """Every simulated host count: disjoint cover + equal batch counts."""
-    from opencv_traffic_sign_detector_tpu.parallel.multihost import (
+    from traffic_sign_detector.parallel.multihost import (
         host_shard_files,
     )
 
@@ -345,7 +345,7 @@ def test_host_shard_files_disjoint_and_balanced():
 
 def test_global_batch_from_local_single_process():
     """process_count=1: local batch becomes the batch-sharded global array."""
-    from opencv_traffic_sign_detector_tpu.parallel.multihost import (
+    from traffic_sign_detector.parallel.multihost import (
         global_batch_from_local,
         initialize_distributed,
     )
@@ -362,7 +362,7 @@ def test_global_batch_from_local_single_process():
 def test_multihost_batched_frames_feeds_mesh(tmp_path):
     """Host-sharded decode feeds a batch-sharded global array per step."""
     cv2 = pytest.importorskip("cv2")
-    from opencv_traffic_sign_detector_tpu.parallel.multihost import (
+    from traffic_sign_detector.parallel.multihost import (
         host_shard_files,
         multihost_batched_frames,
     )

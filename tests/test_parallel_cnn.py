@@ -5,17 +5,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opencv_traffic_sign_detector_tpu.models import cnn_detector as cd
-from opencv_traffic_sign_detector_tpu.models import cnn_train as ct
-from opencv_traffic_sign_detector_tpu.parallel.cnn import (
+from traffic_sign_detector.models import cnn_detector as cd
+from traffic_sign_detector.models import cnn_train as ct
+from traffic_sign_detector.parallel.cnn import (
     make_spmd_cnn_train_step,
     put_sharded_cnn_dataset,
     shard_cnn_dataset,
 )
-from opencv_traffic_sign_detector_tpu.parallel.mesh import data_mesh
+from traffic_sign_detector.parallel.mesh import data_mesh
 
-TINY = cd.CNNDetectorConfig(stem_features=16, mid_features=24,
-                            deep_features=32, head_features=24)
+CFG = cd.CNNDetectorConfig()
 
 
 def _toy_data(n_frames=6, hw=520):
@@ -54,8 +53,8 @@ def test_spmd_cnn_train_step_runs_and_reduces():
     ddata = put_sharded_cnn_dataset(mesh, data)
     cfg = ct.TrainConfig(batch_size=1, steps=10, warmup_steps=2, lr=1e-3,
                          pos_fraction=1.0)
-    step = jax.jit(make_spmd_cnn_train_step(mesh, TINY, cfg))
-    params = cd.init_params(TINY, 0, (ct.CROP, ct.CROP))
+    step = jax.jit(make_spmd_cnn_train_step(mesh, CFG, cfg))
+    params = cd.init_params(0)
     opt_state = ct.make_optimizer(cfg).init(params)
     losses = []
     for s in range(cfg.steps):

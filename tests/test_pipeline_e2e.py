@@ -7,9 +7,9 @@ pytestmark = pytest.mark.slow
 
 from conftest import require_cv2
 
-from opencv_traffic_sign_detector_tpu.config import MSERConfig, PipelineConfig
-from opencv_traffic_sign_detector_tpu.models.detector import DetectionPipeline
-from opencv_traffic_sign_detector_tpu.models.mean_masks import train_mean_masks
+from traffic_sign_detector.config import MSERConfig, PipelineConfig
+from traffic_sign_detector.models.detector import DetectionPipeline
+from traffic_sign_detector.models.mean_masks import train_mean_masks
 
 
 @pytest.fixture(scope="module")

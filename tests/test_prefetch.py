@@ -1,11 +1,11 @@
 import numpy as np
 import pytest
 
-from opencv_traffic_sign_detector_tpu.data.prefetch import batched_frames
+from traffic_sign_detector.data.prefetch import batched_frames
 
 
 def test_batched_frames_real_dir(test_frames_dir):
-    from opencv_traffic_sign_detector_tpu.data.images import list_frame_files
+    from traffic_sign_detector.data.images import list_frame_files
 
     files = list_frame_files(str(test_frames_dir))[:5]
     batches = list(batched_frames(str(test_frames_dir), files, batch_size=2))

@@ -1,6 +1,6 @@
 import time
 
-from opencv_traffic_sign_detector_tpu.utils.profiling import (
+from traffic_sign_detector.utils.profiling import (
     StageProfiler,
     device_sync,
 )

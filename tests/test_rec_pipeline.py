@@ -3,17 +3,17 @@
 import numpy as np
 import pytest
 
-from opencv_traffic_sign_detector_tpu.config import (
+from traffic_sign_detector.config import (
     ClassifierConfig,
     MSERConfig,
     PipelineConfig,
 )
-from opencv_traffic_sign_detector_tpu.models.rec_pipeline import (
+from traffic_sign_detector.models.rec_pipeline import (
     RecognitionPipeline,
     _stack_heads,
     classify_crops_lda,
 )
-from opencv_traffic_sign_detector_tpu.models.recognizer import (
+from traffic_sign_detector.models.recognizer import (
     fit_classifier,
     predict_classifier,
 )
@@ -44,7 +44,7 @@ def test_fused_heads_match_per_head_prediction():
 
 def test_knn_device_path_matches_host():
     import numpy as np
-    from opencv_traffic_sign_detector_tpu.models.rec_pipeline import (
+    from traffic_sign_detector.models.rec_pipeline import (
         classify_crops_knn,
     )
 
@@ -72,7 +72,7 @@ def test_recognize_frames_smoke(test_frames_dir, train_frames_dir):
     cv2 = pytest.importorskip("cv2")
     import os
 
-    from opencv_traffic_sign_detector_tpu.ops.hog import hog_descriptors
+    from traffic_sign_detector.ops.hog import hog_descriptors
 
     # quick LDABAYES trained on a handful of real crops per type + noise
     rng = np.random.default_rng(2)
@@ -108,7 +108,7 @@ def test_grow_boxes_xyxy_geometry():
     """Grow about center, clip to frame, keep half-open int semantics."""
     import jax.numpy as jnp
 
-    from opencv_traffic_sign_detector_tpu.models.rec_pipeline import (
+    from traffic_sign_detector.models.rec_pipeline import (
         grow_boxes_xyxy,
     )
 
@@ -138,15 +138,15 @@ def test_recognize_batch_cnn_smoke():
     import jax
     import jax.numpy as jnp
 
-    from opencv_traffic_sign_detector_tpu.models import cnn_detector as cd
-    from opencv_traffic_sign_detector_tpu.models.rec_pipeline import (
+    from traffic_sign_detector.models import cnn_detector as cd
+    from traffic_sign_detector.models.rec_pipeline import (
         RecognitionPipeline,
     )
 
     # tiny v3 detector with head-bias surgery so decode emits valid boxes
     ccfg = cd.CNNDetectorConfig(arch="v3", max_detections=8,
                                 score_threshold=0.5)
-    p = dict(cd.init_params(ccfg, 0, (64, 64)))
+    p = dict(cd.init_params(0))
     p["Conv_4"] = {"kernel": p["Conv_4"]["kernel"],
                    "bias": p["Conv_4"]["bias"] + 8.0}
     p["Conv_5"] = {"kernel": p["Conv_5"]["kernel"] * 0.0,

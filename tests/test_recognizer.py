@@ -1,6 +1,6 @@
 """Recognition stack: classifier fit/predict, arbitration, harness pieces.
 
-Full 600-frame training is a TPU job; these tests exercise every component
+Full 600-frame training is an accelerator job; these tests exercise every component
 on synthetic data plus a miniature end-to-end run over tiny synthetic frames.
 """
 
@@ -9,12 +9,12 @@ import os
 import numpy as np
 import pytest
 
-from opencv_traffic_sign_detector_tpu.config import ClassifierConfig, MSERConfig
-from opencv_traffic_sign_detector_tpu.eval.reports import (
+from traffic_sign_detector.config import ClassifierConfig, MSERConfig
+from traffic_sign_detector.eval.reports import (
     classification_report,
     confusion_matrix,
 )
-from opencv_traffic_sign_detector_tpu.models.recognizer import (
+from traffic_sign_detector.models.recognizer import (
     SignClassifier,
     arbitrate_lda_heads,
     build_training_data,

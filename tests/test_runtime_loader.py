@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from opencv_traffic_sign_detector_tpu.runtime import loader
+from traffic_sign_detector.runtime import loader
 
 
 @pytest.fixture(scope="module")
@@ -41,7 +41,7 @@ def test_probe_size(built, test_frames_dir):
 
 
 def test_images_module_uses_native_path(built, test_frames_dir):
-    from opencv_traffic_sign_detector_tpu.data.images import load_image_bgr
+    from traffic_sign_detector.data.images import load_image_bgr
 
     img = load_image_bgr(str(test_frames_dir / "00600.jpg"))
     assert img.shape == (800, 1360, 3)
@@ -58,7 +58,7 @@ def test_yuv420_roundtrip_bit_exact(built, tmp_path, test_frames_dir):
     (fancy upsample + fixed-point ycc->rgb, reproduced exactly)."""
     from PIL import Image
 
-    from opencv_traffic_sign_detector_tpu.ops.yuv import yuv420_to_bgr
+    from traffic_sign_detector.ops.yuv import yuv420_to_bgr
 
     src = str(test_frames_dir / "00600.jpg")
     p = str(tmp_path / "f420.jpg")
@@ -79,7 +79,7 @@ def test_yuv420_odd_dimensions_bit_exact(built, tmp_path):
     upsampler and the ceil-division chroma extents."""
     from PIL import Image
 
-    from opencv_traffic_sign_detector_tpu.ops.yuv import yuv420_to_bgr
+    from traffic_sign_detector.ops.yuv import yuv420_to_bgr
 
     rng = np.random.default_rng(7)
     img = rng.integers(0, 256, (61, 47, 3), np.uint8)
@@ -115,7 +115,7 @@ def test_yuv420_repack_of_444_source(built, test_frames_dir):
     """GTSDB frames are 4:4:4: the loader average-pools chroma to 4:2:0.
     The result is not byte-equal to the full decode (that's the point —
     half the bytes), but luma must be EXACT and chroma loss small."""
-    from opencv_traffic_sign_detector_tpu.ops.yuv import yuv420_to_bgr
+    from traffic_sign_detector.ops.yuv import yuv420_to_bgr
 
     p = str(test_frames_dir / "00600.jpg")
     full = loader.decode_jpeg_bgr(p).astype(np.int32)
@@ -134,7 +134,7 @@ def test_prefetch_yuv420_lane(built, test_frames_dir):
     """batched_frames(yuv420=True) yields plane tuples with pad names."""
     import os
 
-    from opencv_traffic_sign_detector_tpu.data.prefetch import batched_frames
+    from traffic_sign_detector.data.prefetch import batched_frames
 
     files = [
         f for f in sorted(os.listdir(test_frames_dir)) if f.endswith(".jpg")
@@ -176,7 +176,7 @@ def test_patches8_stem_equals_frames_stem(built, test_frames_dir):
     the patches8 layout of the same bytes."""
     import jax.numpy as jnp
 
-    from opencv_traffic_sign_detector_tpu.models import cnn_detector as cd
+    from traffic_sign_detector.models import cnn_detector as cd
 
     p = str(test_frames_dir / "00600.jpg")
     bgr = loader.decode_jpeg_bgr(p)[:256, :320]  # small crop: fast on CPU
@@ -187,7 +187,7 @@ def test_patches8_stem_equals_frames_stem(built, test_frames_dir):
     )
     cfg = cd.CNNDetectorConfig(arch="v3", max_detections=8,
                                score_threshold=0.05)
-    params = cd.init_params(cfg, 0, (64, 64))
+    params = cd.init_params(0)
     o1 = cd._detect_jit(cfg, params, jnp.asarray(bgr[None]), 8, 0.05)
     o2 = cd._detect_jit(cfg, params, jnp.asarray(pat), 8, 0.05)
     np.testing.assert_allclose(np.asarray(o1[2]), np.asarray(o2[2]),
@@ -198,7 +198,7 @@ def test_patches8_stem_equals_frames_stem(built, test_frames_dir):
 def test_prefetch_patches8_lane(built, test_frames_dir):
     import os
 
-    from opencv_traffic_sign_detector_tpu.data.prefetch import batched_frames
+    from traffic_sign_detector.data.prefetch import batched_frames
 
     files = [
         f for f in sorted(os.listdir(test_frames_dir)) if f.endswith(".jpg")
@@ -217,7 +217,7 @@ def test_yuv420_patches_matches_host_repack(built, test_frames_dir):
     (ops/yuv.py: patchify_yuv_planes), byte for byte."""
     import os
 
-    from opencv_traffic_sign_detector_tpu.ops.yuv import patchify_yuv_planes
+    from traffic_sign_detector.ops.yuv import patchify_yuv_planes
 
     files = [
         str(test_frames_dir / f)
@@ -240,7 +240,7 @@ def test_yuv420_patches_conversion_bit_exact(built, test_frames_dir):
     survives the patch-space reformulation)."""
     import jax.numpy as jnp
 
-    from opencv_traffic_sign_detector_tpu.ops.yuv import (
+    from traffic_sign_detector.ops.yuv import (
         patchify_yuv_planes,
         yuv420_patches_to_bgr_patches8,
         yuv420_to_bgr,
@@ -263,7 +263,7 @@ def test_yuv420_patches_conversion_bit_exact(built, test_frames_dir):
 def test_prefetch_yuv420p_lane(built, test_frames_dir):
     """batched_frames(input_format="yuv420p") yields patchified plane
     tuples; CNNDetector.dispatch_yuv keys on their ndim."""
-    from opencv_traffic_sign_detector_tpu.data.prefetch import batched_frames
+    from traffic_sign_detector.data.prefetch import batched_frames
 
     import os
 
@@ -289,13 +289,13 @@ def test_dispatch_yuv_patches_agrees_with_tight_planes(built,
 
     import jax.numpy as jnp
 
-    from opencv_traffic_sign_detector_tpu.models import cnn_detector as cd
+    from traffic_sign_detector.models import cnn_detector as cd
 
     ckpt = "artifacts/cnn_detector/params.npz"
     if not os.path.exists(ckpt):
         pytest.skip("shipped checkpoint not present")
     det = cd.CNNDetector.load(ckpt)
-    from opencv_traffic_sign_detector_tpu.ops.yuv import patchify_yuv_planes
+    from traffic_sign_detector.ops.yuv import patchify_yuv_planes
 
     files = [
         str(test_frames_dir / f)

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opencv_traffic_sign_detector_tpu.ops import upscale as up
+from traffic_sign_detector.ops import upscale as up
 
 
 def _oracle(frames_u8, th, tw):
@@ -66,7 +66,7 @@ def test_degenerate_ratio_falls_back_to_dense():
 
 
 def test_downscale_routes_to_dense_resize():
-    """ADVICE r4 #1: sub-1.0 factors must work (dense path), not crash."""
+    """Sub-1.0 factors must work (dense path), not crash."""
     rng = np.random.default_rng(7)
     frames = jnp.asarray(rng.integers(0, 256, (1, 32, 48, 3),
                                       dtype=np.uint8))
@@ -79,7 +79,7 @@ def test_downscale_routes_to_dense_resize():
 
 
 def test_per_axis_fallback_keeps_phase_path_on_good_axis():
-    """ADVICE r4 #2: one degenerate axis (T > _MAX_PHASES) must not force
+    """One degenerate axis (T > _MAX_PHASES) must not force
     the other axis onto the dense path — result still matches the oracle."""
     rng = np.random.default_rng(9)
     # rows 127 -> 256 is degenerate (gcd 1); cols 16 -> 24 has T=3
@@ -93,7 +93,7 @@ def test_per_axis_fallback_keeps_phase_path_on_good_axis():
 
 
 def test_upscale_axis_raises_on_degenerate_plan():
-    """ADVICE r4 #3: a direct mis-call gets a ValueError, not an assert."""
+    """A direct mis-call gets a ValueError, not an assert."""
     frames = jnp.zeros((1, 127, 16, 3), jnp.uint8)
     with pytest.raises(ValueError, match="no phase plan"):
         up._upscale_axis(frames, 1, 256)

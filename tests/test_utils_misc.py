@@ -1,11 +1,11 @@
 import numpy as np
 
-from opencv_traffic_sign_detector_tpu.data.images import stack_frames
-from opencv_traffic_sign_detector_tpu.utils.annotate import draw_boxes_bgr
-from opencv_traffic_sign_detector_tpu.utils.serialization import (
+from traffic_sign_detector.data.images import stack_frames
+from traffic_sign_detector.utils.annotate import draw_boxes_bgr
+from traffic_sign_detector.utils.serialization import (
     detections_to_lines,
 )
-from opencv_traffic_sign_detector_tpu.data.gt import GroundTruthBox
+from traffic_sign_detector.data.gt import GroundTruthBox
 
 
 def test_draw_boxes_edges_and_clipping():
